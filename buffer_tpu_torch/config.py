@@ -130,8 +130,8 @@ class StaticConfig:
     # chunk size of tiled distance computations
     knn_chunk: int = 4096
     # half-width of the rank window of the banded neighbour search on
-    # Morton-ordered clouds; 0 disables.  Ignored when 2*band >= support.
-    # The port runs only the unbanded search so far (ops/neighbors.py).
+    # Morton-ordered clouds; 0 disables.  Ignored when 2*band >= support
+    # (dispatch: ops/neighbors.py).
     knn_band: int = 4096
     # inference descriptor front: fused SPT (True) vs sampled SPT (False)
     fused_desc: bool = True
@@ -273,7 +273,7 @@ def make_cfg(name: str = "3DMatch") -> Config:
 
 def unbanded(cfg: Config) -> Config:
     """``cfg`` with ``static.knn_band = 0``: the exact unbanded neighbour
-    search, the only one the port runs so far."""
+    search everywhere (dense radius-kNN, exact 1-NN upsamples)."""
     return cfg.replace(static=replace(cfg.static, knn_band=0))
 
 
@@ -289,4 +289,16 @@ def tiny_cfg() -> Config:
                             low_match_boost=False),
         match=replace(c.match, hypotheses=128),
         train=replace(c.train, pos_num=32),
+    )
+
+
+def shrink_static(cfg: Config) -> Config:
+    """Any preset with the miniature test plan of :func:`tiny_cfg`, keeping
+    every data and semantic field (voxel sizes, thresholds, dataset)."""
+    t = tiny_cfg()
+    return cfg.replace(
+        static=t.static,
+        point=replace(cfg.point, num_keypts=t.point.num_keypts),
+        match=replace(cfg.match, hypotheses=t.match.hypotheses),
+        train=replace(cfg.train, pos_num=t.train.pos_num),
     )

@@ -1,7 +1,9 @@
-"""Batched farthest point sampling (counterpart of
-``buffer_tpu/kernels/fps_pallas.py:fps_pallas_batched``).
+"""Farthest point sampling (counterparts of
+``buffer_tpu/kernels/fps_pallas.py`` ``fps_pallas_batched`` and the
+single-cloud ``fps_pallas``; both launch ``csrc/fps.cu``, the single cloud
+at B = 1, and count their launches apart).
 
-The wrapper takes the plain PyTorch version for CPU tensors only; a CUDA
+Each wrapper takes the plain PyTorch version for CPU tensors only; a CUDA
 tensor goes to ``csrc/fps.cu`` or raises.  Both compute each step's distances as
 ((dx*dx + dy*dy) + dz*dz) with separately rounded operations: FPS is
 chaotic, so the indices agree only when the rounding does.
@@ -18,6 +20,10 @@ FPS = cuda.register(cuda.Kernel(
     "fps", "buffer_tpu_torch/csrc/fps.cu", "fps_launch",
     [P, P, P, P, I, I, I, P, P],
     "buffer_tpu/kernels/fps_pallas.py:155"))
+FPS_SINGLE = cuda.register(cuda.Kernel(
+    "fps_single", "buffer_tpu_torch/csrc/fps.cu", "fps_launch",
+    [P, P, P, P, I, I, I, P, P],
+    "buffer_tpu/kernels/fps_pallas.py:67"))
 
 MAX_POINTS = 64 * 1024
 
@@ -49,12 +55,8 @@ def fps_plain(points: torch.Tensor, eligible: torch.Tensor,
     return out.to(torch.int32)
 
 
-def fps_cuda_batched(points: torch.Tensor, eligible: torch.Tensor,
-                     num_samples: int) -> torch.Tensor:
-    """FPS of :func:`fps_plain` over B clouds in one launch (one block of
-    1024 threads per cloud)."""
-    if points.device.type == "cpu":
-        return fps_plain(points, eligible, num_samples)
+def _fps_launch(kernel: cuda.Kernel, points: torch.Tensor,
+                eligible: torch.Tensor, num_samples: int) -> torch.Tensor:
     B, N, _ = points.shape
     if N > MAX_POINTS or N == 0 or num_samples < 1:
         raise ValueError(f"fps: N={N} must be in 1..{MAX_POINTS}, "
@@ -62,8 +64,32 @@ def fps_cuda_batched(points: torch.Tensor, eligible: torch.Tensor,
     pts = points.float()
     x, y, z = (pts[..., d].contiguous() for d in range(3))
     elig = eligible.to(torch.uint8).contiguous()
-    cuda.check_cuda("fps", x, y, z, elig)
+    cuda.check_cuda(kernel.name, x, y, z, elig)
     out = torch.empty((B, num_samples), dtype=torch.int32, device=points.device)
-    FPS.launch(x.data_ptr(), y.data_ptr(), z.data_ptr(), elig.data_ptr(), B, N,
-               num_samples, out.data_ptr(), cuda.stream_handle(x))
+    kernel.launch(x.data_ptr(), y.data_ptr(), z.data_ptr(), elig.data_ptr(), B,
+                  N, num_samples, out.data_ptr(), cuda.stream_handle(x))
     return out
+
+
+def fps_cuda_batched(points: torch.Tensor, eligible: torch.Tensor,
+                     num_samples: int) -> torch.Tensor:
+    """FPS of :func:`fps_plain` over B clouds in one launch (one block of
+    1024 threads per cloud)."""
+    if points.device.type == "cpu":
+        return fps_plain(points, eligible, num_samples)
+    return _fps_launch(FPS, points, eligible, num_samples)
+
+
+def fps_single_plain(points: torch.Tensor, eligible: torch.Tensor,
+                     num_samples: int) -> torch.Tensor:
+    """:func:`fps_plain` of one cloud: points [N, 3], eligible [N] -> idx
+    [num_samples] int32 (``fps_pallas``'s contract)."""
+    return fps_plain(points[None], eligible[None], num_samples)[0]
+
+
+def fps_cuda_single(points: torch.Tensor, eligible: torch.Tensor,
+                    num_samples: int) -> torch.Tensor:
+    """FPS of :func:`fps_single_plain`: the batched kernel at B = 1."""
+    if points.device.type == "cpu":
+        return fps_single_plain(points, eligible, num_samples)
+    return _fps_launch(FPS_SINGLE, points[None], eligible[None], num_samples)[0]

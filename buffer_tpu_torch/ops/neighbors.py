@@ -1,16 +1,18 @@
 """Neighbour search (counterpart of ``buffer_tpu/ops/neighbors.py``).
 
-* :func:`radius_knn` -- exact radius-limited kNN: chunked
-  ``|q|^2 - 2 q.s + |s|^2`` distances and ``torch.topk`` (the reference's
-  unbanded search, which runs outside any Pallas kernel);
-* :func:`nearest` -- exact 1-NN through the CUDA kernel
-  ``kernels/geom_cuda.nearest_cuda``;
+* :func:`radius_knn` -- radius-limited kNN: the rank-banded kernel
+  (``kernels/knn_cuda.banded_knn_cuda``) where the TPU path takes
+  ``banded_knn_tpu``, else the exact dense search (chunked
+  ``|q|^2 - 2 q.s + |s|^2`` distances and ``torch.topk``);
+* :func:`nearest` -- 1-NN: the banded kernel
+  (``kernels/knn_cuda.banded_nn1_cuda``) where the TPU path takes
+  ``banded_nn1_tpu``, else the exact kernel ``kernels/geom_cuda.nearest_cuda``;
 * :func:`ball_sample_planes` -- random-priority ball sampling through
   ``kernels/geom_cuda.ball_sample_planes_cuda``.
 
-All take a batch of clouds [B, ...] and validity masks.  The rank-banded
-search of the reference (``knn_band`` > 0 with ``2*band < S``) is not
-ported yet and raises.
+All take a batch of clouds [B, ...] and validity masks.  The dispatch is
+the TPU path's own (``buffer_tpu/ops/neighbors.py:98-116, 402-411``):
+:func:`knn_route` and :func:`nearest_route` name the branch a shape takes.
 """
 
 from __future__ import annotations
@@ -21,32 +23,65 @@ import torch
 
 from buffer_tpu_torch.kernels.geom_cuda import (ball_sample_planes_cuda,
                                                 nearest_cuda)
+from buffer_tpu_torch.kernels.knn_cuda import (banded_knn_cuda, banded_nn1_cuda,
+                                               banded_supported,
+                                               banded_win_rows)
 
 BIG = 1e9
 
 
-def _check_band(band: Optional[int], support_size: int) -> None:
-    if band and 2 * band < support_size:
+def knn_route(support_size: int, band: Optional[int]) -> str:
+    """"banded" (the banded kernel; the band restricts the search, or its
+    window covers the whole grid) or "dense" (the exact search).  Raises
+    for a restricting band the kernel cannot take: the reference's XLA
+    fallback ``radius_knn_banded`` is not ported."""
+    S = support_size
+    if band and banded_supported(S):
+        _, covers = banded_win_rows(S, band)
+        if 2 * band < S or covers:
+            return "banded"
+    if band and 2 * band < S:
         raise NotImplementedError(
-            "banded kernels not yet ported: run with static.knn_band = 0 "
-            f"(band={band}, support={support_size})")
+            f"radius_knn_banded (the XLA fallback for a support of {S} "
+            f"points, band {band}) is not ported")
+    return "dense"
+
+
+def nearest_route(support_size: int, band: Optional[int]) -> str:
+    """"banded" (the banded 1-NN kernel) when the band restricts the search
+    and the kernel takes the support, else "exact"."""
+    S = support_size
+    return "banded" if band and 2 * band < S and banded_supported(S) else "exact"
+
+
+def _query_mask(query: torch.Tensor, query_valid: Optional[torch.Tensor]):
+    if query_valid is None:
+        raise ValueError("the banded search needs query_valid: its window "
+                         "follows the ratio of the valid counts")
+    return query_valid
 
 
 def radius_knn(query: torch.Tensor, support: torch.Tensor,
                support_valid: torch.Tensor, k: int,
                radius: Optional[float] = None, query_chunk: int = 4096,
-               band: Optional[int] = None
+               band: Optional[int] = None,
+               query_valid: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """k nearest valid support points of each query, optionally within
     ``radius``.
 
-    query [B, Q, 3], support [B, S, 3], support_valid [B, S] -> (d2 [B, Q, k]
-    ascending, idx [B, Q, k] int32, valid [B, Q, k]).  Slots past the
-    in-radius count are invalid with d2 = 1e9 and idx 0 (the shadow
-    neighbours of the reference)."""
+    query [B, Q, 3], support [B, S, 3], support_valid [B, S], query_valid
+    [B, Q] (needed on the banded branch) -> (d2 [B, Q, k] ascending,
+    idx [B, Q, k] int32, valid [B, Q, k]).  The banded branch returns the
+    truncated distances of its packed keys (low 16 mantissa bits clear) and
+    may hold any index in slots that are not valid; the dense branch puts
+    d2 = 1e9 and idx 0 there (the shadow neighbours of the reference)."""
     B, Q, _ = query.shape
     S = support.shape[1]
-    _check_band(band, S)
+    if knn_route(S, band) == "banded":
+        wr, _ = banded_win_rows(S, band)
+        return banded_knn_cuda(query, support, support_valid,
+                               _query_mask(query, query_valid), k, radius, wr)
     r2 = None if radius is None else float(radius) ** 2
     s2 = torch.sum(support * support, dim=-1)                     # [B, S]
     d_out = torch.empty((B, Q, k), dtype=query.dtype, device=query.device)
@@ -71,11 +106,15 @@ def radius_knn(query: torch.Tensor, support: torch.Tensor,
 
 
 def nearest(query: torch.Tensor, support: torch.Tensor,
-            support_valid: torch.Tensor, band: Optional[int] = None
+            support_valid: torch.Tensor, band: Optional[int] = None,
+            query_valid: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact 1-NN: query [B, Q, 3] over support [B, S, 3] -> (d2 [B, Q],
-    idx [B, Q] int32).  Replaces KNN_CUDA(k=1) (models/BUFFER.py:335-359)."""
-    _check_band(band, support.shape[1])
+    """1-NN: query [B, Q, 3] over support [B, S, 3] -> (d2 [B, Q],
+    idx [B, Q] int32).  Replaces KNN_CUDA(k=1) (models/BUFFER.py:335-359).
+    The banded branch searches +-1024 ranks and returns truncated d2."""
+    if nearest_route(support.shape[1], band) == "banded":
+        return banded_nn1_cuda(query, support, support_valid,
+                               _query_mask(query, query_valid))
     return nearest_cuda(query, support, support_valid)
 
 

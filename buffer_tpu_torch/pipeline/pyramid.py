@@ -6,6 +6,8 @@ level, and nearest-coarse upsample indices; radii follow the reference
 (ThreeDMatch/dataloader.py:142,187-201,222): level radius
 ``r_l = voxel_size_0 * conv_radius * 2^l``, upsample radius ``2 * r_l``.
 The level-0 kNN serves both the PCA normals and the level-0 conv list.
+Every search gets its query level's mask: the banded kernels centre each
+query tile's window by the ratio of the valid counts.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def build_pyramid_and_normals(cfg: Config, points: torch.Tensor,
     nk = st.normal_knn
 
     d2, idx, v = radius_knn(points, points, masks, k=k0, radius=None,
-                            query_chunk=chunk, band=band)
+                            query_chunk=chunk, band=band, query_valid=masks)
     normals = normals_from_neighbors(points, masks, idx[..., :nk], v[..., :nk])
 
     pts = (points, levels[0], levels[2])
@@ -45,7 +47,8 @@ def build_pyramid_and_normals(cfg: Config, points: torch.Tensor,
     for lvl in (1, 2):
         _, i, nv = radius_knn(pts[lvl], pts[lvl], msk[lvl],
                               k=st.neighbor_caps[lvl], radius=r0 * 2 ** lvl,
-                              query_chunk=chunk, band=band)
+                              query_chunk=chunk, band=band,
+                              query_valid=msk[lvl])
         neighbors.append(i)
         neighbor_valid.append(nv & msk[lvl][..., None])
 
@@ -54,10 +57,12 @@ def build_pyramid_and_normals(cfg: Config, points: torch.Tensor,
         r = r0 * 2 ** lvl
         _, pidx, pv = radius_knn(pts[lvl + 1], pts[lvl], msk[lvl],
                                  k=st.pool_caps[lvl], radius=r,
-                                 query_chunk=chunk, band=band)
+                                 query_chunk=chunk, band=band,
+                                 query_valid=msk[lvl + 1])
         pools.append(pidx)
         pool_valid.append(pv & msk[lvl + 1][..., None])
-        ud2, uidx = nearest(pts[lvl], pts[lvl + 1], msk[lvl + 1], band=band)
+        ud2, uidx = nearest(pts[lvl], pts[lvl + 1], msk[lvl + 1], band=band,
+                            query_valid=msk[lvl])
         ups.append(uidx)
         up_valid.append((ud2 <= (2.0 * r) ** 2) & msk[lvl])
     return Pyramid(pts, msk, tuple(neighbors), tuple(neighbor_valid),

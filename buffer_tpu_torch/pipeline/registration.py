@@ -5,8 +5,9 @@ Stages: input normals and the conv pyramid, EFCNN axes and DetNet
 saliency, the detector threshold and FPS keypoints, MiniSpinNet
 descriptors of both clouds in one batch, mutual matching, the SO(2) cost
 volume, hypothesis voting, batched RANSAC and IRLS refinement.  Four stages
-run through the CUDA kernels of ``kernels/``: the two pyramid upsamples
-(1-NN), FPS, patch ball sampling and the fused SPT front.
+run through the CUDA kernels of ``kernels/``: the pyramid's neighbour
+tables (banded radius-kNN, banded and exact 1-NN), FPS, patch ball
+sampling and the fused SPT front.
 
 Everything runs in fp32 at full precision (TF32 off for matmuls and cuDNN
 convolutions), as the reference runs at ``default_matmul_precision

@@ -1,22 +1,26 @@
 """Device-time profile of one full-width registration on the card.
 
-    python -m buffer_tpu_torch.utils.profiling [--pairs N] [--out DIR]
+    python -m buffer_tpu_torch.utils.profiling [--config {3DMatch,KITTI}]
+        [--knn-band N] [--pairs N] [--out DIR]
 
-Runs ``register_pair`` (3DMatch preset, ``knn_band = 0``, full width,
-seeded random weights, :func:`~buffer_tpu_torch.data.synthetic.surface_pair`)
-once to warm up, then ``--pairs`` more without and ``--pairs`` more under
+Runs ``register_pair`` (the preset at full width with its own
+``knn_band`` unless ``--knn-band`` says otherwise, seeded random weights;
+3DMatch on :func:`~buffer_tpu_torch.data.synthetic.surface_pair`, KITTI on
+:func:`~buffer_tpu_torch.data.synthetic.lidar_pair`) once to warm up,
+then ``--pairs`` more without and ``--pairs`` more under
 ``torch.profiler``.  Prints one JSON line: the wall time per pair without
 and with the profiler, the device time summed over CUDA kernels (busy
 share = device time / wall time without the profiler), the kernel launch
 count, per stage of ``register_pair`` its span on the device timeline
 (CUDA events, without the profiler) beside the kernel time between its
 boundary markers in the profile, and the operators with the most device
-time.  The Chrome trace goes to ``DIR/profile_pair.json.gz``.
+time.  The Chrome trace goes to ``DIR/profile_<config>_band<N>.json.gz``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gzip
 import json
 import os
@@ -58,14 +62,17 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from buffer_tpu_torch.config import threedmatch_cfg, unbanded
-    from buffer_tpu_torch.data.synthetic import surface_pair
+    from buffer_tpu_torch.config import make_cfg
+    from buffer_tpu_torch.data.synthetic import lidar_pair, surface_pair
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.models.composite import BufferModel
     from buffer_tpu_torch.pipeline.registration import (StageTimer, make_draws,
                                                         register_pair)
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("3DMatch", "KITTI"), default="3DMatch")
+    ap.add_argument("--knn-band", type=int, default=None,
+                    help="static.knn_band (default: the preset's)")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
@@ -73,9 +80,15 @@ def main() -> int:
         raise SystemExit("profiling: no CUDA device")
     dev = torch.device("cuda", 0)
     cuda.build_all()
-    cfg = unbanded(threedmatch_cfg())
+    cfg = make_cfg(args.config)
+    if args.knn_band is not None:
+        cfg = cfg.replace(static=dataclasses.replace(cfg.static,
+                                                     knn_band=args.knn_band))
     model = BufferModel(cfg, seed=0).to(dev)
-    inputs, _ = surface_pair(cfg, 0, dev)
+    if args.config == "KITTI":
+        inputs, _ = lidar_pair(cfg, 13, dev)
+    else:
+        inputs, _ = surface_pair(cfg, 0, dev)
     draws = make_draws(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     register_pair(model, inputs, draws, device=dev)
     torch.cuda.synchronize()
@@ -105,12 +118,14 @@ def main() -> int:
               for s in StageTimer.STAGES}
     top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)[:15]
     os.makedirs(args.out, exist_ok=True)
-    trace = os.path.join(args.out, "profile_pair.json")
+    trace = os.path.join(
+        args.out, f"profile_{args.config}_band{cfg.static.knn_band}.json")
     prof.export_chrome_trace(trace)
     with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     os.remove(trace)
     print(json.dumps({
+        "config": args.config, "knn_band": cfg.static.knn_band,
         "pairs": args.pairs, "wall_ms_per_pair": plain_wall_ms / args.pairs,
         "profiled_wall_ms_per_pair": wall_ms / args.pairs,
         "device_ms_per_pair": device_ms / args.pairs,

@@ -3,25 +3,38 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit (nvidia-smi) and builds the four
-   CUDA kernels from ``buffer_tpu_torch/csrc`` (one nvcc each, in parallel).
-2. Drives the port's main path: ``register_pair`` on the 3DMatch preset with
-   ``static.knn_band = 0`` (the exact unbanded neighbour search) at full
-   width -- 30720/10240/3072 pyramid points, 65536 raw points, 1500
-   keypoints, 512-point patches, 1024 RANSAC hypotheses with the x4
-   low-match boost -- on synthetic fragment pairs (the surface generator of
-   bench.py) with seeded random weights.  Every kernel launch counter is
-   set to 0 just before and read just after; each kernel must have run on
-   every pair.  Prints ms/pair and a per-stage breakdown (CUDA events).
-3. Runs the first pair once more with the plain PyTorch versions of the
-   kernels on the card (substituted at the kernels' call sites): keypoint
-   indices and the mutual-match count must be equal, the descriptors within
-   1e-3 and the pose within 1e-4.
-4. Holds each kernel against its plain version on the main path's inputs
-   (exact for 1-NN, FPS and ball sampling; 2e-5 for the SPT front), times
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call (CUDA events after warm-up), and computes each
-   kernel's bound from this run's inputs.
+1. Prints the card's name and power limit (nvidia-smi) and builds every
+   CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
+   started together).
+2. Drives four paths, each with every kernel launch counter set to 0 just
+   before it and read just after; every kernel of a path must have run on
+   every pair of it:
+   * the main path: ``register_pair`` on the shipped 3DMatch preset
+     (``knn_band = 4096``) at full width -- 30720/10240/3072 pyramid points,
+     65536 raw points, 1500 keypoints, 512-point patches, 1024 RANSAC
+     hypotheses with the x4 low-match boost -- on 3 synthetic fragment pairs
+     (the surface generator of bench.py) with seeded random weights;
+   * the KITTI preset at full width (40960/20480/6144 pyramid points,
+     131072 raw points) on 2 synthetic LiDAR pairs, the first a warm-up;
+   * the 3DMatch preset with ``knn_band = 0`` (exact unbanded search) on
+     1 pair;
+   * the single-cloud FPS entry point ``ops.sampling.farthest_point_sample``
+     on the main path's first source cloud.
+   Prints ms/pair and a per-stage breakdown (CUDA events) of each preset.
+3. Runs the first pair of each preset once more with the plain PyTorch
+   versions of the kernels on the card (substituted at the kernels' call
+   sites): keypoint indices and the mutual-match count must be equal, the
+   descriptors within 1e-3 and the pose within 1e-4.
+4. Holds each kernel against its plain version at the main path's own
+   inputs -- every call of the first pair (exact for the banded kNN, the
+   banded 1-NN, 1-NN, both FPS entry points and ball sampling; 2e-5 for the
+   SPT front) -- and the banded kernels on the KITTI pair too; scores the
+   banded search against the exact dense search (recall of the true
+   in-radius k-NN, > 0.97, and 1-NN index agreement, > 0.99, gated on
+   3DMatch, printed for KITTI); times kernel, plain version, the exact
+   search the banded kernels stand in for and, where one PyTorch call
+   computes the same function, that call (CUDA events after warm-up); and
+   computes each kernel's bound from this run's inputs.
 
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds every kernel's
@@ -41,6 +54,23 @@ import time
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 N_PAIRS = 3
+N_KITTI_PAIRS = 2
+KITTI_SEED = 13
+RECALL_KNN = 0.97            # tests/test_geom_pallas.py:143
+AGREE_NN1 = 0.99
+# launches per pair of each kernel on each path (ops/neighbors.py dispatch):
+# 3DMatch bands l0/l1 kNN and both pools (l2 has 3072 points, under the
+# band), KITTI also l2 (6144 points under its 64-row window); both take the
+# banded 1-NN for l0 -> l1 and the exact one for l1 -> l2
+PER_PAIR = {
+    "3DMatch": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
+                "ball_sample": 1, "spt_pooled": 1},
+    "KITTI": {"bknn": 5, "bnn1": 1, "nearest": 1, "fps": 1, "ball_sample": 1,
+              "spt_pooled": 1},
+    "3DMatch knn_band=0": {"nearest": 2, "fps": 1, "ball_sample": 1,
+                           "spt_pooled": 1},
+    "farthest_point_sample": {"fps_single": 1},
+}
 
 
 def card_line() -> str:
@@ -73,31 +103,37 @@ def bound(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def check_launches(path: str, rose: dict) -> None:
+    """Every kernel of the path ran on this pair as often as the dispatch
+    says, and no other kernel ran."""
+    want = PER_PAIR[path]
+    if {k: v for k, v in rose.items() if v or k in want} != want:
+        raise RuntimeError(f"{path}: launches {rose}, expected {want}")
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Within the block the four kernels' call sites call the plain PyTorch
-    versions: the same registration on the card without the kernels."""
-    from buffer_tpu_torch.kernels import fps_cuda, geom_cuda
-    from buffer_tpu_torch.models import patch_embedder
-    from buffer_tpu_torch.ops import neighbors, sampling
-    sites = [(neighbors, "nearest_cuda", geom_cuda.nearest_plain),
-             (neighbors, "ball_sample_planes_cuda",
-              geom_cuda.ball_sample_planes_plain),
-             (sampling, "fps_cuda_batched", fps_cuda.fps_plain),
-             (patch_embedder, "spt_pooled_cuda", geom_cuda.spt_pooled_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
-    for mod, name, plain in sites:
-        setattr(mod, name, plain)
+def capture(mod, name: str, calls: list):
+    """Within the block every call of ``mod.name`` is recorded in ``calls``
+    as its positional arguments."""
+    fn = getattr(mod, name)
+
+    def recorded(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(mod, name, recorded)
     try:
         yield
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        setattr(mod, name, fn)
 
 
-def run_main_path(model, dev, pairs, draws, cuda, registration):
-    """The main path: every count set to 0 just before, read just after."""
+def drive(path: str, model, dev, pairs, draws):
+    """register_pair over ``pairs``; every count set to 0 just before and
+    read just after.  Returns (launches, ms per pair, results, stage ms)."""
     import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
     cuda.reset_launches()
     per_pair, results, stages = [], [], []
     for inputs, dr in zip(pairs, draws):
@@ -110,13 +146,179 @@ def run_main_path(model, dev, pairs, draws, cuda, registration):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         after = cuda.launch_counts()
-        rose = {k: after[k] - before[k] for k in after}
-        if min(rose.values()) <= 0:
-            raise RuntimeError(f"a kernel did not run on this pair: {rose}")
+        check_launches(path, {k: after[k] - before[k] for k in after})
         per_pair.append(ms)
         results.append(res)
         stages.append(timer.stage_ms())
     return cuda.launch_counts(), per_pair, results, stages
+
+
+def path_line(path: str, cfg, launches, per_pair, results, stages, prep_s,
+              pair0) -> dict:
+    """Checks the outputs of a driven path and summarizes it."""
+    import torch
+    for r in results:
+        if not torch.isfinite(r.pose).all():
+            raise RuntimeError(f"{path}: non-finite pose")
+        if r.pose.shape != (4, 4) or r.kpts.shape != (2, cfg.point.num_keypts, 3):
+            raise RuntimeError(f"{path}: unexpected output shapes")
+    n_kpts = [[int(v) for v in r.kpt_valid.sum(1)] for r in results]
+    if min(min(n) for n in n_kpts) <= 0:
+        raise RuntimeError(f"{path}: no eligible keypoints: {n_kpts}")
+    warm = per_pair[1:] or per_pair
+    steady = stages[1:] or stages
+    line = {"path": path, "pairs": len(per_pair), "host_prep_s": prep_s,
+            "valid_points": {f: [int(m.sum()) for m in getattr(pair0, f)]
+                             for f in ("raw_mask", "sds_mask", "lvl1_mask",
+                                       "lvl2_mask")},
+            "ms_per_pair": sum(warm) / len(warm), "first_pair_ms": per_pair[0],
+            "per_pair_ms": per_pair,
+            "stage_ms": {k: sum(s[k] for s in steady) / len(steady)
+                         for k in stages[0]},
+            "eligible_keypoints": n_kpts,
+            "num_mutual": [int(r.num_mutual) for r in results],
+            "num_inliers": [int(r.num_inliers) for r in results],
+            "launches": launches}
+    print(json.dumps(line))
+    return line
+
+
+def plain_path_check(path: str, model, dev, inputs, draws, kernel_run) -> dict:
+    """The pair once more through the plain versions: the same keypoints and
+    mutual count, descriptors within 1e-3, pose within 1e-4."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda, sites
+    from buffer_tpu_torch.pipeline import registration
+    res_k, inter_k = kernel_run
+    before = cuda.launch_counts()
+    with sites.plain_versions():
+        res_p, inter_p = registration.register_pair(
+            model, inputs, draws, device=dev, return_intermediates=True)
+    if cuda.launch_counts() != before:
+        raise RuntimeError(f"{path}: a kernel ran on the plain path")
+    if not torch.equal(inter_k["kidx"], inter_p["kidx"]):
+        raise RuntimeError(f"{path}: keypoint indices differ between kernels "
+                           "and plain")
+    pose_err = float((res_k.pose - res_p.pose).abs().max())
+    desc_err = max(float((inter_k[n] - inter_p[n]).abs().max())
+                   for n in ("s_des", "t_des"))
+    if (int(res_k.num_mutual) != int(res_p.num_mutual) or pose_err > 1e-4
+            or desc_err > 1e-3):
+        raise RuntimeError(f"{path}: kernel and plain paths disagree: mutual "
+                           f"{int(res_k.num_mutual)} vs {int(res_p.num_mutual)}, "
+                           f"pose {pose_err}, descriptors {desc_err}")
+    out = {"path": path, "kidx_equal": True,
+           "num_mutual": int(res_k.num_mutual), "desc_max_abs_err": desc_err,
+           "pose_max_abs_err": pose_err}
+    print(json.dumps({"plain_path_check": out}))
+    return out
+
+
+def recorded_run(model, dev, inputs, draws):
+    """register_pair of one pair with the arguments of every neighbour
+    kernel call recorded: (result, intermediates, {wrapper: [args]})."""
+    from buffer_tpu_torch.ops import neighbors
+    from buffer_tpu_torch.pipeline import registration
+    calls = {"banded_knn_cuda": [], "banded_nn1_cuda": [], "nearest_cuda": []}
+    with contextlib.ExitStack() as stack:
+        for name, store in calls.items():
+            stack.enter_context(capture(neighbors, name, store))
+        res, inter = registration.register_pair(
+            model, inputs, draws, device=dev, return_intermediates=True)
+    return res, inter, calls
+
+
+def knn_recall(got, exact, query_valid, r2_prefix=None) -> float:
+    """Mean share of the true in-radius k-NN (the exact search's valid
+    slots) present in the banded result, over valid queries that have any.
+    ``r2_prefix`` restricts both to d2 <= r2 (the radius-free level-0 list
+    is scored on the prefix the conv uses)."""
+    import torch
+    d, i, v = got
+    de, ie, ve = exact
+    if r2_prefix is not None:
+        v = v & (d <= r2_prefix)
+        ve = ve & (de <= r2_prefix)
+    i = torch.where(v, i, torch.full_like(i, -1))
+    hit = ((ie[..., :, None] == i[..., None, :]).any(-1) & ve).sum(-1)
+    n = ve.sum(-1)
+    ok = query_valid & (n > 0)
+    return float((hit[ok].float() / n[ok].float()).mean())
+
+
+def banded_entries(calls, cfg, check_only: bool = False):
+    """Checks the banded kernels bit-equal to their plain versions on every
+    recorded call, scores them against the exact search and (unless
+    ``check_only``) times them.  Returns per-kernel sums and per-call
+    rows."""
+    import torch
+    from buffer_tpu_torch.kernels import knn_cuda
+    from buffer_tpu_torch.ops import neighbors
+    r0 = cfg.data.voxel_size_0 * cfg.point.conv_radius
+    rows, sums = [], {}
+
+    def add(kernel, row):
+        rows.append(row)
+        s = sums.setdefault(kernel, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
+                                     "exact_ms": 0.0, "flops": 0.0,
+                                     "bytes": 0.0, "score": []})
+        s["calls"] += 1
+        for key in ("ms", "plain_ms", "exact_ms", "flops", "bytes"):
+            s[key] += row.get(key) or 0.0
+        s["score"].append(row["score"])
+
+    for q, s, sv, qv, k, radius, wr in calls["banded_knn_cuda"]:
+        args = (q, s, sv, qv, k, radius, wr)
+        got = knn_cuda.banded_knn_cuda(*args)
+        want = knn_cuda.banded_knn_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"bknn: kernel and plain differ at Q={q.shape[1]}"
+                               f" S={s.shape[1]} k={k} radius={radius}")
+        exact = neighbors.radius_knn(q, s, sv, k, radius if radius else r0)
+        score = knn_recall(got, exact, qv, None if radius else r0 * r0)
+        B, Q, S = q.shape[0], q.shape[1], s.shape[1]
+        _, LW = knn_cuda.window_rows(S, wr)
+        row = {"kernel": "bknn", "Q": Q, "S": S, "k": k, "radius": radius,
+               "window_rows": LW, "score": score,
+               "flops": B * Q * LW * knn_cuda.NSEG * 8,
+               "bytes": B * (Q * 13 + S * 13 + Q * k * 9)}
+        if not check_only:
+            row["ms"] = cuda_ms(lambda: knn_cuda.banded_knn_cuda(*args), 20)
+            row["plain_ms"] = cuda_ms(lambda: knn_cuda.banded_knn_plain(*args), 2)
+            row["exact_ms"] = cuda_ms(
+                lambda: neighbors.radius_knn(q, s, sv, k, radius), 3)
+        add("bknn", row)
+
+    for q, s, sv, qv in calls["banded_nn1_cuda"]:
+        got = knn_cuda.banded_nn1_cuda(q, s, sv, qv)
+        want = knn_cuda.banded_nn1_plain(q, s, sv, qv)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError("bnn1: kernel and plain differ")
+        _, ie = neighbors.nearest_cuda(q, s, sv)
+        score = float((got[1] == ie)[qv].float().mean())
+        B, Q, S = q.shape[0], q.shape[1], s.shape[1]
+        _, LW = knn_cuda.window_rows(S, knn_cuda.NN1_WIN_ROWS)
+        row = {"kernel": "bnn1", "Q": Q, "S": S, "window_rows": LW,
+               "score": score, "flops": B * Q * LW * knn_cuda.NSEG * 8,
+               "bytes": B * (Q * 13 + S * 13 + Q * 8)}
+        if not check_only:
+            row["ms"] = cuda_ms(lambda: knn_cuda.banded_nn1_cuda(q, s, sv, qv), 20)
+            row["plain_ms"] = cuda_ms(
+                lambda: knn_cuda.banded_nn1_plain(q, s, sv, qv), 2)
+            row["exact_ms"] = cuda_ms(lambda: cdist_nn(q, s, sv), 3)
+        add("bnn1", row)
+    for row in rows:
+        print(json.dumps({"banded_call": row}))
+    return sums, rows
+
+
+def cdist_nn(q, s, valid, chunk=4096):
+    """Exact 1-NN by one PyTorch call per query chunk (``torch.cdist`` and
+    ``min``): the yardstick of the 1-NN kernel."""
+    import torch
+    far = torch.where(valid[..., None], s, torch.full_like(s, 1e6))
+    return [torch.cdist(q[:, i:i + chunk], far).min(dim=2)
+            for i in range(0, q.shape[1], chunk)]
 
 
 def main() -> int:
@@ -124,11 +326,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
-    from buffer_tpu_torch.config import threedmatch_cfg, unbanded
     print(card_line())
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    summary = run(torch.device("cuda", 0), unbanded(threedmatch_cfg()), N_PAIRS)
+    from buffer_tpu_torch.config import kitti_cfg, threedmatch_cfg
+    summary = run(torch.device("cuda", 0), threedmatch_cfg(), kitti_cfg(),
+                  N_PAIRS, N_KITTI_PAIRS)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": summary["kernels"]}))
@@ -138,14 +341,16 @@ def main() -> int:
     return 0
 
 
-def run(dev, cfg, n_pairs: int) -> dict:
-    """Build, drive the main path, check it against the plain path and
+def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
+    """Build, drive every path, check each against its plain path and
     measure each kernel; returns the summary (raises on any failure)."""
     import torch
-    from buffer_tpu_torch.data.synthetic import surface_pair
+    from buffer_tpu_torch.config import unbanded
+    from buffer_tpu_torch.data.synthetic import lidar_pair, surface_pair
     from buffer_tpu_torch.kernels import cuda, fps_cuda, geom_cuda
     from buffer_tpu_torch.models import patch_embedder as pe
     from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.ops import sampling
     from buffer_tpu_torch.pipeline import registration
 
     t0 = time.time()
@@ -156,70 +361,60 @@ def run(dev, cfg, n_pairs: int) -> dict:
     print(json.dumps({"build_s": build_s, "ptxas": ptxas}))
 
     p = cfg.patch
-    model = BufferModel(cfg, seed=0).to(dev)
-    t0 = time.time()
-    pairs_T = [surface_pair(cfg, seed, dev) for seed in range(n_pairs)]
-    prep_s = time.time() - t0
-    pairs = [x[0] for x in pairs_T]
     gen = torch.Generator(device=dev).manual_seed(0)
-    draws = [registration.make_draws(cfg, gen, dev) for _ in pairs]
-    print(json.dumps({"config": "3DMatch, knn_band=0", "pairs": n_pairs,
-                      "host_prep_s": prep_s,
-                      "valid_points": {f: [int(m.sum()) for m in getattr(pairs[0], f)]
-                                       for f in ("raw_mask", "sds_mask",
-                                                 "lvl1_mask", "lvl2_mask")}}))
 
-    # ---- the main path --------------------------------------------------
-    counts, per_pair, results, stages = run_main_path(
-        model, dev, pairs, draws, cuda, registration)
-    for r in results:
-        if not torch.isfinite(r.pose).all():
-            raise RuntimeError("non-finite pose")
-        if r.pose.shape != (4, 4) or r.kpts.shape != (2, cfg.point.num_keypts, 3):
-            raise RuntimeError("unexpected output shapes")
-    n_kpts = [[int(v) for v in r.kpt_valid.sum(1)] for r in results]
-    if min(min(n) for n in n_kpts) <= 0:
-        raise RuntimeError(f"no eligible keypoints: {n_kpts}")
-    warm = per_pair[1:] if len(per_pair) > 1 else per_pair
-    stage_mean = {k: sum(s[k] for s in stages[1:] or stages) / len(stages[1:] or stages)
-                  for k in stages[0]}
-    slice_line = {
-        "slice_ms_per_pair": sum(warm) / len(warm), "first_pair_ms": per_pair[0],
-        "per_pair_ms": per_pair, "stage_ms": stage_mean,
-        "eligible_keypoints": n_kpts,
-        "num_mutual": [int(r.num_mutual) for r in results],
-        "num_inliers": [int(r.num_inliers) for r in results],
-        "launches": counts}
-    print(json.dumps(slice_line))
+    def pairs_of(c, make, seeds):
+        t = time.time()
+        made = [make(c, s, dev) for s in seeds]
+        return ([m[0] for m in made], [m[1] for m in made],
+                [registration.make_draws(c, gen, dev) for _ in made],
+                time.time() - t)
 
-    # ---- the same pair through the plain versions on the card -----------
-    res_k, inter_k = registration.register_pair(
-        model, pairs[0], draws[0], device=dev, return_intermediates=True)
-    before = cuda.launch_counts()
-    with plain_versions():
-        res_p, inter_p = registration.register_pair(
-            model, pairs[0], draws[0], device=dev, return_intermediates=True)
-    if cuda.launch_counts() != before:
-        raise RuntimeError("a kernel ran on the plain path")
-    pose_err = float((res_k.pose - res_p.pose).abs().max())
-    if not torch.equal(inter_k["kidx"], inter_p["kidx"]):
-        raise RuntimeError("keypoint indices differ between kernels and plain")
-    # unit descriptors: the SPT front may differ by 2e-5 before the CNN
-    desc_err = max(float((inter_k[n] - inter_p[n]).abs().max())
-                   for n in ("s_des", "t_des"))
-    if (int(res_k.num_mutual) != int(res_p.num_mutual) or pose_err > 1e-4
-            or desc_err > 1e-3):
-        raise RuntimeError(f"kernel and plain paths disagree: mutual "
-                           f"{int(res_k.num_mutual)} vs {int(res_p.num_mutual)}, "
-                           f"pose {pose_err}, descriptors {desc_err}")
-    print(json.dumps({"plain_path_check": {"kidx_equal": True,
-                                           "num_mutual": int(res_k.num_mutual),
-                                           "desc_max_abs_err": desc_err,
-                                           "pose_max_abs_err": pose_err}}))
+    # ---- the main path: the shipped 3DMatch preset ----------------------
+    model = BufferModel(cfg, seed=0).to(dev)
+    pairs, poses_gt, draws, prep_s = pairs_of(cfg, surface_pair, range(n_pairs))
+    counts, *rest = drive("3DMatch", model, dev, pairs, draws)
+    main_line = path_line("3DMatch", cfg, counts, *rest, prep_s, pairs[0])
 
-    # ---- each kernel against its plain version at the main-path inputs ---
-    pyr = inter_k["pyramid"]
-    kernels = []
+    # ---- KITTI at full width --------------------------------------------
+    kmodel = BufferModel(kcfg, seed=0).to(dev)
+    kpairs, kposes_gt, kdraws, kprep_s = pairs_of(
+        kcfg, lidar_pair, range(KITTI_SEED, KITTI_SEED + n_kitti))
+    kcounts, *rest = drive("KITTI", kmodel, dev, kpairs, kdraws)
+    kitti_line = path_line("KITTI", kcfg, kcounts, *rest, kprep_s, kpairs[0])
+
+    # ---- the exact unbanded path of slice 1 -----------------------------
+    ucfg = unbanded(cfg)
+    umodel = BufferModel(ucfg, seed=0).to(dev)
+    upairs, _, udraws, uprep_s = pairs_of(ucfg, surface_pair, [0])
+    ucounts, *rest = drive("3DMatch knn_band=0", umodel, dev, upairs, udraws)
+    band0_line = path_line("3DMatch knn_band=0", ucfg, ucounts, *rest, uprep_s,
+                           upairs[0])
+
+    # ---- the first pair of each preset with every call recorded ---------
+    res_k, inter_k, calls = recorded_run(model, dev, pairs[0], draws[0])
+    kres_k, kinter_k, kcalls = recorded_run(kmodel, dev, kpairs[0], kdraws[0])
+
+    # ---- the single-cloud FPS entry point -------------------------------
+    K = cfg.point.num_keypts
+    sds0 = pairs[0].sds[0]
+    elig0 = pairs[0].sds_mask[0] & (inter_k["score"][0] > cfg.point.keypts_th)
+    cuda.reset_launches()
+    fidx, fvalid = sampling.farthest_point_sample(sds0, elig0, K)
+    torch.cuda.synchronize()
+    fcounts = cuda.launch_counts()
+    check_launches("farthest_point_sample", fcounts)
+    if int(fvalid.sum()) != min(K, int(elig0.sum())):
+        raise RuntimeError("farthest_point_sample: wrong valid count")
+
+    # ---- plain-path checks ----------------------------------------------
+    checks = [plain_path_check("3DMatch", model, dev, pairs[0], draws[0],
+                               (res_k, inter_k)),
+              plain_path_check("KITTI", kmodel, dev, kpairs[0], kdraws[0],
+                               (kres_k, kinter_k))]
+
+    # ---- each kernel against its plain version at the main-path inputs --
+    kernels, reference = [], {}
 
     def entry(kern, launches, err, ms, plain_ms, flops, nbytes, lib_ms):
         b_ms, b_by = bound(flops, nbytes)
@@ -230,37 +425,31 @@ def run(dev, cfg, n_pairs: int) -> dict:
         print(json.dumps(e))
         kernels.append(e)
 
-    # 1. exact 1-NN: both upsamples of one pair (l0 -> l1, l1 -> l2)
-    nn_args = [(pyr.points[l], pyr.points[l + 1], pyr.masks[l + 1]) for l in (0, 1)]
+    # 1. exact 1-NN: every call of the pair (the l1 -> l2 upsample)
+    nn_args = calls["nearest_cuda"]
     err = 0.0
     for a in nn_args:
         (dk, ik), (dp, ip) = geom_cuda.nearest_cuda(*a), geom_cuda.nearest_plain(*a)
         if not torch.equal(ik, ip):
             raise RuntimeError("nearest: kernel and plain indices differ")
         err = max(err, float((dk - dp).abs().max()))
-
-    def cdist_nn(q, s, valid, chunk=4096):
-        far = torch.where(valid[..., None], s, torch.full_like(s, 1e6))
-        return [torch.cdist(q[:, i:i + chunk], far).min(dim=2)
-                for i in range(0, q.shape[1], chunk)]
-
-    nn_ms = sum(cuda_ms(lambda a=a: geom_cuda.nearest_cuda(*a), 20) for a in nn_args)
-    nn_plain = sum(cuda_ms(lambda a=a: geom_cuda.nearest_plain(*a), 3) for a in nn_args)
-    nn_lib = sum(cuda_ms(lambda a=a: cdist_nn(*a), 5) for a in nn_args)
-    flops = sum(a[0].shape[0] * a[0].shape[1] * a[1].shape[1] * 8 for a in nn_args)
-    nbytes = sum(a[0].numel() * 4 + a[1].numel() * 4 + a[2].numel()
-                 + a[0].shape[0] * a[0].shape[1] * 8 for a in nn_args)
-    entry(geom_cuda.NEAREST, counts["nearest"], err, nn_ms, nn_plain, flops,
-          nbytes, nn_lib)
+    entry(geom_cuda.NEAREST, counts["nearest"], err,
+          sum(cuda_ms(lambda a=a: geom_cuda.nearest_cuda(*a), 20) for a in nn_args),
+          sum(cuda_ms(lambda a=a: geom_cuda.nearest_plain(*a), 3) for a in nn_args),
+          sum(a[0].shape[0] * a[0].shape[1] * a[1].shape[1] * 8 for a in nn_args),
+          sum(a[0].numel() * 4 + a[1].numel() * 4 + a[2].numel()
+              + a[0].shape[0] * a[0].shape[1] * 8 for a in nn_args),
+          sum(cuda_ms(lambda a=a: cdist_nn(*a), 5) for a in nn_args))
 
     # 2. batched FPS on the detector-eligible points
     sds = pairs[0].sds
     elig = pairs[0].sds_mask & (inter_k["score"] > cfg.point.keypts_th)
-    K = cfg.point.num_keypts
     ik = fps_cuda.fps_cuda_batched(sds, elig, K)
     ip = fps_cuda.fps_plain(sds, elig, K)
     if not torch.equal(ik, ip):
         raise RuntimeError("fps: kernel and plain indices differ")
+    if not torch.equal(ik, inter_k["kidx"]):
+        raise RuntimeError("fps: not the main path's keypoints")
     B, N = elig.shape
     entry(fps_cuda.FPS, counts["fps"], float((ik - ip).abs().max()),
           cuda_ms(lambda: fps_cuda.fps_cuda_batched(sds, elig, K), 5),
@@ -312,10 +501,50 @@ def run(dev, cfg, n_pairs: int) -> dict:
               KK * S_eff * 12 + KK * 36 + S_eff * 4 + KK * 16 * A * 4
               + A * 48 * 4, None)
 
+    # 5.-6. the banded kNN (both stages) and the banded 1-NN, every call of
+    # the pair; the KITTI pair's calls checked and scored, not timed
+    from buffer_tpu_torch.kernels import knn_cuda
+    sums, rows = banded_entries(calls, cfg)
+    ksums, krows = banded_entries(kcalls, kcfg, check_only=True)
+    quality = {"3DMatch": {n: s["score"] for n, s in sums.items()},
+               "KITTI": {n: s["score"] for n, s in ksums.items()}}
+    print(json.dumps({"banded_quality": quality}))
+    if (min(sums["bknn"]["score"]) <= RECALL_KNN
+            or min(sums["bnn1"]["score"]) <= AGREE_NN1):
+        raise RuntimeError(f"banded search below its bars on 3DMatch: {quality}")
+    for kern, name in ((knn_cuda.BKNN, "bknn"), (knn_cuda.BNN1, "bnn1")):
+        s = sums[name]
+        entry(kern, counts[name], 0.0, s["ms"], s["plain_ms"], s["flops"],
+              s["bytes"], None)
+        reference[name] = {"exact_search_ms": s["exact_ms"], "calls": s["calls"],
+                           "what": ("ops.neighbors.radius_knn with band=None"
+                                    if name == "bknn" else
+                                    "chunked torch.cdist + min"),
+                           "note": "a different function: the exact search "
+                                   "the banded kernel stands in for"}
+    print(json.dumps({"exact_search_reference": reference}))
+
+    # 7. single-cloud FPS: row 0 of the batched kernel and the plain version
+    ib = fps_cuda.fps_cuda_batched(sds0[None], elig0[None], K)[0]
+    ipl = fps_cuda.fps_single_plain(sds0, elig0, K)
+    if not (torch.equal(fidx, ib) and torch.equal(fidx, ipl)):
+        raise RuntimeError("fps_single: differs from the batched kernel or "
+                           "the plain version")
+    N1 = sds0.shape[0]
+    entry(fps_cuda.FPS_SINGLE, fcounts["fps_single"], 0.0,
+          cuda_ms(lambda: sampling.farthest_point_sample(sds0, elig0, K), 5),
+          cuda_ms(lambda: fps_cuda.fps_single_plain(sds0, elig0, K), 1),
+          (K - 1) * N1 * 9, N1 * 13 + K * 4, None)
+
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-            "slice": slice_line, "kernels": kernels,
-            "pose_gt": [T.tolist() for _, T in pairs_T]}
+            "paths": [main_line, kitti_line, band0_line],
+            "fps_single_launches": fcounts, "plain_path_checks": checks,
+            "banded_calls": {"3DMatch": rows, "KITTI": krows},
+            "banded_quality": quality, "exact_search_reference": reference,
+            "kernels": kernels,
+            "pose_gt": {"3DMatch": [T.tolist() for T in poses_gt],
+                        "KITTI": [T.tolist() for T in kposes_gt]}}
 
 
 if __name__ == "__main__":

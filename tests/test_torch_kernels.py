@@ -151,5 +151,6 @@ def test_wrappers_take_plain_versions_on_cpu():
     idx = fps_cuda.fps_cuda_batched(pts, valid, 16)
     np.testing.assert_array_equal(idx.numpy(),
                                   fps_cuda.fps_plain(pts, valid, 16).numpy())
-    assert cuda.launch_counts() == {"nearest": 0, "ball_sample": 0,
-                                    "spt_pooled": 0, "fps": 0}
+    counts = cuda.launch_counts()
+    assert {"nearest", "ball_sample", "spt_pooled", "fps"} <= set(counts)
+    assert set(counts.values()) == {0}

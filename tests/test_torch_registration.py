@@ -9,8 +9,13 @@ The JAX CPU path thins the fused SPT front by Bernoulli draws
 port implements; this test holds JAX to the kernel's semantics by
 replacing ``fused_point_features`` with a function that folds the weights
 as ``patch_embedder.py:276-294`` does and runs ``spt_pooled_tpu`` in Pallas
-interpret mode.  Nothing in the JAX package changes."""
+interpret mode.  Likewise the JAX pyramid takes the TPU path's neighbour
+kernels (the banded Pallas kernels in interpret mode, inside its own
+``vmap``) where the CPU path would take the XLA fallbacks
+``radius_knn_banded``/``nearest_banded``.  Nothing in the JAX package
+changes."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,12 +32,14 @@ from buffer_tpu.core import gridmath as jgridmath
 from buffer_tpu.data import preprocess as jpre
 from buffer_tpu.models import patch_embedder as jpe
 from buffer_tpu.models.composite import BufferModel as JModel
+from buffer_tpu.pipeline import pyramid as jpyr
 from buffer_tpu.pipeline.registration import register_pair as j_register_pair
 
 import buffer_tpu_torch.config as tconfig
 from buffer_tpu_torch.compat.from_jax import variables_to_state_dict
 from buffer_tpu_torch.data.preprocess import prepare_pair
 from buffer_tpu_torch.models.composite import BufferModel
+from buffer_tpu_torch.ops import neighbors
 from buffer_tpu_torch.pipeline.registration import Draws, register_pair
 
 torch.set_num_threads(1)
@@ -55,12 +62,12 @@ def _fused_kernel_semantics(desc_params, desc_stats, key, delta_x, rad_n,
         int(voxel_sample), R=R_align)
 
 
-def _surface(n, seed):
+def _surface(n, seed, extent=0.6):
     rs = np.random.RandomState(seed)
     pts = rs.uniform(-0.6, 0.6, (n, 3)).astype(np.float32)
     pts[:, 2] = (0.25 * np.sin(4 * pts[:, 0]) + 0.2 * np.cos(3 * pts[:, 1])
                  + 0.08 * np.sin(11 * pts[:, 0] * pts[:, 1]) + 1.5)
-    return pts
+    return pts * np.float32(extent / 0.6)
 
 
 def _jax_draws(key, cfg):
@@ -76,15 +83,44 @@ def _jax_draws(key, cfg):
     return Draws(t(jnp.stack(ball)), t(spt), t(gumbel))
 
 
-def test_register_pair_matches_jax(monkeypatch):
+def _tpu_dispatch(monkeypatch):
+    """Hold JAX's pyramid to the TPU path's neighbour kernels: the dispatch
+    of ``ops/neighbors.py:98-116, 402-411`` with the banded Pallas kernels
+    in interpret mode (on the CPU JAX would take its XLA fallbacks)."""
+    radius_knn, nearest = jpyr.radius_knn, jpyr.nearest
+
+    def tpu_radius_knn(query, support, support_valid, k, radius=None,
+                       band=None, query_valid=None, **kw):
+        S = support.shape[0]
+        if band is not None and gp.banded_tpu_supported(S):
+            wr, covers = gp.banded_win_rows(S, band)
+            if 2 * band < S or covers:
+                return gp.banded_knn_tpu.__wrapped__(
+                    query, support, support_valid, query_valid, k, radius,
+                    band=band, win_rows=wr)
+        return radius_knn(query, support, support_valid, k, radius, band=band,
+                          query_valid=query_valid, **kw)
+
+    def tpu_nearest(query, support, support_valid, band=None,
+                    query_valid=None, **kw):
+        S = support.shape[0]
+        if band is not None and 2 * band < S and gp.banded_tpu_supported(S):
+            return gp.banded_nn1_tpu.__wrapped__(query, support, support_valid,
+                                                 query_valid)
+        return nearest(query, support, support_valid, band=band,
+                       query_valid=query_valid, **kw)
+
+    monkeypatch.setattr(jpyr, "radius_knn", tpu_radius_knn)
+    monkeypatch.setattr(jpyr, "nearest", tpu_nearest)
+
+
+def _run_both(monkeypatch, jcfg, tcfg, raw, tgt):
+    """register_pair of both packages on one pair: same inputs, weights and
+    draws; returns ((res, inter) of the port, (res, inter) of JAX)."""
     monkeypatch.setattr(gp.pl, "pallas_call",
                         functools.partial(pl.pallas_call, interpret=True))
     monkeypatch.setattr(jpe, "fused_point_features", _fused_kernel_semantics)
-    jcfg, tcfg = jconfig.tiny_cfg(), tconfig.tiny_cfg()
-    # a small shift keeps matched keypoints close under random weights, so
-    # RANSAC and IRLS find inliers and the pose comparison is not trivial
-    raw = _surface(900, 0)
-    tgt = raw + np.float32([0.02, -0.01, 0.015])
+    _tpu_dispatch(monkeypatch)
     j_inputs = jpre.prepare_pair(jcfg, raw.copy(), tgt.copy(),
                                  rs=np.random.RandomState(3),
                                  already_downsampled=True)
@@ -105,17 +141,37 @@ def test_register_pair_matches_jax(monkeypatch):
         jm, v, i, k, return_intermediates=True))(variables, j_inputs, key)
     res, inter = register_pair(model, t_inputs, _jax_draws(key, jcfg),
                                device="cpu", return_intermediates=True)
+    return (res, inter), (res_j, inter_j)
 
-    pj, pt = inter_j["pyramid"], inter["pyramid"]
+
+def _assert_tables_equal(pt, pj):
+    """Pyramid tables equal: upsample indices exactly; neighbour and pool
+    lists as sets where valid (fp32 ties may swap the order)."""
     for lvl in range(2):
         np.testing.assert_array_equal(pt.upsamples[lvl].numpy(),
                                       np.asarray(pj.upsamples[lvl]))
-    for lvl in range(3):
-        v = np.asarray(pj.neighbor_valid[lvl])
-        np.testing.assert_array_equal(pt.neighbor_valid[lvl].numpy(), v)
-        np.testing.assert_array_equal(  # same sets; rounding ties may swap
-            np.sort(np.where(v, pt.neighbors[lvl].numpy(), -1), -1),
-            np.sort(np.where(v, np.asarray(pj.neighbors[lvl]), -1), -1))
+        np.testing.assert_array_equal(pt.upsample_valid[lvl].numpy(),
+                                      np.asarray(pj.upsample_valid[lvl]))
+    for got, want, got_v, want_v in (
+            list(zip(pt.neighbors, pj.neighbors, pt.neighbor_valid,
+                     pj.neighbor_valid))
+            + list(zip(pt.pools, pj.pools, pt.pool_valid, pj.pool_valid))):
+        v = np.asarray(want_v)
+        np.testing.assert_array_equal(got_v.numpy(), v)
+        np.testing.assert_array_equal(
+            np.sort(np.where(v, got.numpy(), -1), -1),
+            np.sort(np.where(v, np.asarray(want), -1), -1))
+
+
+def test_register_pair_matches_jax(monkeypatch):
+    jcfg, tcfg = jconfig.tiny_cfg(), tconfig.tiny_cfg()
+    # a small shift keeps matched keypoints close under random weights, so
+    # RANSAC and IRLS find inliers and the pose comparison is not trivial
+    raw = _surface(900, 0)
+    tgt = raw + np.float32([0.02, -0.01, 0.015])
+    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt)
+
+    _assert_tables_equal(inter["pyramid"], inter_j["pyramid"])
     # saliency to fp32 reordering; keypoint indices exactly equal
     np.testing.assert_allclose(inter["score"].numpy(), np.asarray(inter_j["score"]),
                                rtol=1e-4, atol=1e-5)
@@ -141,3 +197,66 @@ def test_register_pair_matches_jax(monkeypatch):
     assert int(res.num_inliers) == int(res_j.num_inliers)
     np.testing.assert_allclose(res.pose.numpy(), np.asarray(res_j.pose),
                                rtol=1e-3, atol=1e-3)
+
+
+def _banded_plan(mod):
+    c = mod.tiny_cfg()
+    return c.replace(static=dataclasses.replace(
+        c.static, points_l0=4096, points_l1=2048, points_l2=512,
+        raw_points=4096, knn_band=512))
+
+
+def test_register_pair_banded_matches_jax(monkeypatch):
+    """A plan where the band is live: the level-0 and level-1 kNN, both
+    pools and the l0 -> l1 upsample take the banded kernels (level 0 has
+    32 grid rows against a 16-row window), level 2 the exact searches."""
+    jcfg, tcfg = _banded_plan(jconfig), _banded_plan(tconfig)
+    assert [neighbors.knn_route(S, 512) for S in (4096, 2048, 512)] == [
+        "banded", "banded", "dense"]
+    raw = _surface(4000, 1, extent=1.0)
+    tgt = raw + np.float32([0.02, -0.01, 0.015])
+    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt)
+    pt = inter["pyramid"]
+    assert int(pt.masks[0][0].sum()) > 2048
+    _assert_tables_equal(pt, inter_j["pyramid"])
+    np.testing.assert_array_equal(inter["kidx"].numpy(), np.asarray(inter_j["kidx"]))
+    assert res.kpt_valid.any()
+    assert int(res.num_mutual) == int(res_j.num_mutual) > 0
+    assert int(res.num_inliers) == int(res_j.num_inliers)
+    np.testing.assert_allclose(res.pose.numpy(), np.asarray(res_j.pose),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_register_pair_kitti_matches_jax(monkeypatch):
+    """The KITTI preset at the tiny plan: identity patch frames, no IRLS
+    (pose_refine off), the LiDAR voxel sizes; a surface ten times the size
+    of the 3DMatch one."""
+    jcfg = jconfig.shrink_static(jconfig.kitti_cfg())
+    tcfg = tconfig.shrink_static(tconfig.kitti_cfg())
+    assert tcfg == tconfig.shrink_static(tconfig.make_cfg("KITTI"))
+    assert not tcfg.test.pose_refine and tcfg.data.dataset == "KITTI"
+    raw = _surface(900, 2, extent=6.0)
+    tgt = raw + np.float32([0.2, -0.1, 0.15])
+    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt)
+    _assert_tables_equal(inter["pyramid"], inter_j["pyramid"])
+    np.testing.assert_array_equal(inter["kidx"].numpy(), np.asarray(inter_j["kidx"]))
+    assert res.kpt_valid.any()
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), inter["s_R"].shape)
+    np.testing.assert_array_equal(inter["s_R"].numpy(), eye)
+    assert int(res.num_mutual) == int(res_j.num_mutual) > 0
+    assert int(res.num_inliers) == int(res_j.num_inliers)
+    np.testing.assert_allclose(res.pose.numpy(), np.asarray(res_j.pose),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_lidar_pair_matches_jax():
+    """The port's KITTI-like LiDAR pair is the JAX package's, array for
+    array, at the full KITTI plan (bench.py's seed)."""
+    from buffer_tpu.data.synthetic import make_lidar_pair
+    from buffer_tpu_torch.data.synthetic import lidar_pair
+    want, T_want = make_lidar_pair(jconfig.kitti_cfg(), np.random.RandomState(13))
+    got, T_got = lidar_pair(tconfig.kitti_cfg(), 13, device="cpu")
+    np.testing.assert_array_equal(T_got, T_want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got.sds_mask[0].sum()) == 40000
