@@ -1,11 +1,12 @@
 """Cylindrical anchor grid and azimuth derotations of the Spatial Point
 Transformer (counterpart of ``buffer_tpu/core/gridmath.py``).  Both tables
 are static and built with numpy (reference utils/common.py:248-262,
-:390-428, :483-493)."""
+:390-428, :483-493); :func:`var_to_invar` applies the derotations."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def s2_grid(n_alpha: int, n_beta: int) -> np.ndarray:
@@ -43,3 +44,18 @@ def azimuth_derotations(azi_n: int) -> np.ndarray:
     R[:, 1, 0], R[:, 1, 1] = s, c
     R[:, 2, 2] = 1.0
     return R
+
+
+def var_to_invar(pts: torch.Tensor, rotations: torch.Tensor, rad_n: int,
+                 azi_n: int, ele_n: int) -> torch.Tensor:
+    """Derotate per-anchor samples into the azimuth-invariant frame
+    (utils/common.py:472-498): pts [B, rad_n*ele_n*azi_n, nsample, 3] in
+    anchor order (r*ele_n + e)*azi_n + a, rotations [azi_n, 3, 3] from
+    :func:`azimuth_derotations`; azimuth slice a becomes ``p @ R_a^T``."""
+    B, N, nsample, C = pts.shape
+    if N != rad_n * azi_n * ele_n:
+        raise ValueError(f"var_to_invar: {N} anchors, expected "
+                         f"{rad_n}*{azi_n}*{ele_n}")
+    x = pts.reshape(B, rad_n, ele_n, azi_n, nsample, C)
+    out = torch.einsum("breasc,adc->breasd", x, rotations.to(pts.dtype))
+    return out.reshape(B, N, nsample, C)

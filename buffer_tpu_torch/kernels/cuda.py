@@ -152,6 +152,14 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels have no backward: raise when autograd would need one,
+    rather than return outputs silently cut from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward, but an input "
+                           "requires a gradient")
+
+
 KERNELS: Dict[str, Kernel] = {}
 
 

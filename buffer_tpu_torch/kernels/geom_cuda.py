@@ -1,10 +1,15 @@
-"""Geometry kernels: exact 1-NN, ball sampling and the fused SPT front.
+"""Geometry kernels: exact 1-NN, ball sampling (coordinate planes for the
+inference front, stacked points for the training front) and the fused SPT
+front.
 
 Counterparts of ``buffer_tpu/kernels/geom_pallas.py``.  Each wrapper takes
 its plain PyTorch version for CPU tensors only; a CUDA tensor goes to the
 hand-written kernel in ``csrc/`` or raises.  The plain versions repeat the
 kernels' arithmetic operation for operation (no fused multiply-adds
 anywhere), so on the card kernel and plain version agree bit for bit.
+None of the kernels has a backward: 1-NN and ball sampling return indices
+or copies of input points, and the SPT front serves inference only.  Every
+wrapper raises when an input asks for a gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +32,10 @@ BALL = cuda.register(cuda.Kernel(
     "ball_sample", "buffer_tpu_torch/csrc/ball.cu", "ball_launch",
     [P, P, P, P, P, P, I, I, I, I, F, P, P, P, P, P],
     "buffer_tpu/kernels/geom_pallas.py:182"))
+BALL_POINTS = cuda.register(cuda.Kernel(
+    "ball_sample_points", "buffer_tpu_torch/csrc/ball.cu", "ball_points_launch",
+    [P, P, P, P, P, P, I, I, I, I, F, P, P, P],
+    "buffer_tpu/kernels/geom_pallas.py:115"))
 SPT = cuda.register(cuda.Kernel(
     "spt_pooled", "buffer_tpu_torch/csrc/spt.cu", "spt_launch",
     [P] * 14 + [I, I, I, I, F, P, P],
@@ -66,6 +75,7 @@ def nearest_plain(query: torch.Tensor, support: torch.Tensor,
 def nearest_cuda(query: torch.Tensor, support: torch.Tensor,
                  valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN of :func:`nearest_plain`, batched over clouds."""
+    cuda.check_no_grad("nearest", query, support)
     if query.device.type == "cpu":
         return nearest_plain(query, support, valid)
     query = query.contiguous().float()
@@ -145,32 +155,77 @@ def ball_sample_planes_plain(query, support, support_valid, prio, radius: float,
     return outs[0], outs[1], outs[2], vout
 
 
+def ball_sample_points_plain(query, support, support_valid, prio,
+                             radius: float, k: int):
+    """:func:`ball_sample_planes_plain` with the coordinates stacked:
+    (points [B, Q, k, 3] f32, valid [B, Q, k] bool)."""
+    x, y, z, v = ball_sample_planes_plain(query, support, support_valid, prio,
+                                          radius, k)
+    return torch.stack([x, y, z], dim=-1), v
+
+
+def _check_ball(name: str, query, support, k: int) -> None:
+    N = support.shape[1]
+    NS = k // 2
+    if k % 2 or NS == 0 or N % NS or NS > 1024:
+        raise ValueError(f"{name}: k={k} must be even with k/2 <= 1024 "
+                         f"dividing N={N}")
+    if query.shape[1] == 0:
+        raise ValueError(f"{name}: no queries")
+    cuda.check_no_grad(name, query, support)
+
+
+def _ball_kernel_inputs(name: str, query, support, support_valid, prio, k: int):
+    """Contiguous f32 queries and the five [B, L, NS] support grids."""
+    query = query.contiguous().float()
+    u = torch.where(support_valid, prio, torch.full_like(prio, -BIG))
+    grids = _ball_grids(support.float(), u.float(), k // 2)
+    cuda.check_cuda(name, query, *grids)
+    return query, grids
+
+
 def ball_sample_planes_cuda(query, support, support_valid, prio,
                             radius: float, k: int):
     """Ball sampling of :func:`ball_sample_planes_plain`, batched over
     clouds (reference: pointnet2 ball_query over a shuffled cloud)."""
-    B, N, _ = support.shape
-    NS = k // 2
-    if k % 2 or N % NS or NS > 1024:
-        raise ValueError(f"ball_sample: k={k} must be even with k/2 <= 1024 "
-                         f"dividing N={N}")
+    _check_ball("ball_sample", query, support, k)
     if query.device.type == "cpu":
         return ball_sample_planes_plain(query, support, support_valid, prio,
                                         radius, k)
-    query = query.contiguous().float()
-    u = torch.where(support_valid, prio, torch.full_like(prio, -BIG))
-    grids = _ball_grids(support.float(), u.float(), NS)
-    cuda.check_cuda("ball_sample", query, *grids)
-    Q = query.shape[1]
-    if Q == 0:
-        raise ValueError("ball_sample: no queries")
+    query, grids = _ball_kernel_inputs("ball_sample", query, support,
+                                       support_valid, prio, k)
+    B, Q, _ = query.shape
     x, y, z = (torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
                for _ in range(3))
     v = torch.empty((B, Q, k), dtype=torch.uint8, device=query.device)
-    BALL.launch(query.data_ptr(), *(g.data_ptr() for g in grids), B, Q, N // NS,
-                NS, float(radius) ** 2, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                v.data_ptr(), cuda.stream_handle(query))
+    BALL.launch(query.data_ptr(), *(g.data_ptr() for g in grids), B, Q,
+                support.shape[1] // (k // 2), k // 2, float(radius) ** 2,
+                x.data_ptr(), y.data_ptr(), z.data_ptr(), v.data_ptr(),
+                cuda.stream_handle(query))
     return x, y, z, v.bool()
+
+
+def ball_sample_points_cuda(query, support, support_valid, prio,
+                            radius: float, k: int):
+    """Ball sampling of :func:`ball_sample_points_plain` in one launch over
+    all clouds: query [B, Q, 3], support [B, N, 3], support_valid and the
+    priorities prio [B, N] -> (points [B, Q, k, 3], valid [B, Q, k]); k even,
+    k/2 <= 1024 dividing N.  The points are copies of support points (no
+    backward; see the module docstring)."""
+    _check_ball("ball_sample_points", query, support, k)
+    if query.device.type == "cpu":
+        return ball_sample_points_plain(query, support, support_valid, prio,
+                                        radius, k)
+    query, grids = _ball_kernel_inputs("ball_sample_points", query, support,
+                                       support_valid, prio, k)
+    B, Q, _ = query.shape
+    pts = torch.empty((B, Q, k, 3), dtype=torch.float32, device=query.device)
+    v = torch.empty((B, Q, k), dtype=torch.uint8, device=query.device)
+    BALL_POINTS.launch(query.data_ptr(), *(g.data_ptr() for g in grids), B, Q,
+                       support.shape[1] // (k // 2), k // 2,
+                       float(radius) ** 2, pts.data_ptr(), v.data_ptr(),
+                       cuda.stream_handle(query))
+    return pts, v.bool()
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +340,7 @@ def spt_pooled_cuda(W_all: torch.Tensor, b_eff: torch.Tensor,
     top-priority in-ball point of each of the first voxel_sample patch
     segments is MLP'd and max-pooled; empty slots give f0.  Returns
     [K, rad_n, ele_n, azi_n, 16]."""
+    cuda.check_no_grad("spt_pooled", W_all, b_eff, f0, *planes, R)
     if u.device.type == "cpu":
         return spt_pooled_plain(W_all, b_eff, f0, u, planes, R, rad_n, azi_n,
                                 ele_n, voxel_r, voxel_sample)

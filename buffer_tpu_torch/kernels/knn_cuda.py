@@ -20,6 +20,9 @@ patterns of non-negative floats, so integer order is float order.
 
 Each wrapper takes its plain PyTorch version for CPU tensors only; a CUDA
 tensor goes to ``csrc/bknn.cu`` or ``csrc/bnn1.cu``, or raises.  The
+results are indices and distances of input points: no gradient flows
+through them, there is no backward kernel, and a wrapper raises when an
+input asks for a gradient.  The
 kernels derive each tile's window start from the two valid counts on the
 card, in the order of :func:`window_starts`.  The plain versions repeat the
 kernels' separately rounded arithmetic, so on the card kernel and plain
@@ -248,6 +251,7 @@ def _check(name, query, support, support_valid, query_valid):
         raise ValueError(f"{name}: bad shapes {tuple(query.shape)}, "
                          f"{tuple(support.shape)}, {tuple(support_valid.shape)}, "
                          f"{tuple(query_valid.shape)}")
+    cuda.check_no_grad(name, query, support)
 
 
 def _kernel_inputs(name, query, support, support_valid, query_valid):

@@ -1,6 +1,6 @@
 """Where the pipeline calls each kernel wrapper, and a switch to the plain
-versions there: the same registration on the card without the kernels,
-to hold the kernel path against the plain path."""
+versions there: the same registration or training step on the card
+without the kernels, to hold the kernel path against the plain path."""
 
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ def call_sites():
             (neighbors, "banded_nn1_cuda", knn_cuda.banded_nn1_plain),
             (neighbors, "ball_sample_planes_cuda",
              geom_cuda.ball_sample_planes_plain),
+            (neighbors, "ball_sample_points_cuda",
+             geom_cuda.ball_sample_points_plain),
             (sampling, "fps_cuda_batched", fps_cuda.fps_plain),
             (sampling, "fps_cuda_single", fps_cuda.fps_single_plain),
             (patch_embedder, "spt_pooled_cuda", geom_cuda.spt_pooled_plain)]

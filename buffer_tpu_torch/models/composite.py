@@ -3,8 +3,9 @@ reference ``buffer``, models/BUFFER.py:69-79).
 
 One ``nn.Module`` with the reference's four stages as attributes, so its
 state dict carries the reference key names (``Ref.encoder_blocks.0...``)
-and reference checkpoints load directly.  The port runs inference only:
-the model is built in eval mode and batch norms use running statistics.
+and reference checkpoints load directly.  The model is built in eval mode
+(batch norms use running statistics); training puts the active stage in
+train mode (``pipeline/train_forward.stage_loss``).
 """
 
 from __future__ import annotations

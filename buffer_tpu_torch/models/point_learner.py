@@ -7,7 +7,12 @@ neighbours (invalid slots) gather a zero row: zero feature, zero offset,
 and they still count in the mean over the K neighbours, which keeps the
 reference's shadow-counting denominator (point_learner.py:16-21).
 
-Features are [B, N, C, 3]; parameter names are the reference's.
+Features are [B, N, C, 3]; parameter names are the reference's.  In train
+mode every batch norm takes the JAX package's masks: a conv block the query
+mask broadcast over its K neighbour slots, the unary and shortcut layers
+the query mask, the decoder and heads their level's mask (JAX
+point_learner.py:204, 223-237, 325-375).  Both clouds lie on the batch
+axis and share one set of statistics; autograd flows through the gathers.
 """
 
 from __future__ import annotations
@@ -51,6 +56,11 @@ def gather_neighborhood(s_pts, s_feat, q_pts, idx, valid, scale: float):
     return nbr_f, eqv
 
 
+def _slot_mask(q_mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The query mask broadcast over the K neighbour slots."""
+    return q_mask[:, :, None].expand(idx.shape)
+
+
 class VNNConvBlock(nn.Module):
     """'VNN_first': mode-'6' channels (feature, offset, cross, mean offset)
     -> VNLinearLeakyReLU -> mean over neighbours (point_learner.py:268-416)."""
@@ -60,13 +70,13 @@ class VNNConvBlock(nn.Module):
         self.scale = scale
         self.conv = VNLinearLeakyReLU(in_dim + 3, out_dim)
 
-    def forward(self, x, q_pts, s_pts, idx, valid):
+    def forward(self, x, q_pts, q_mask, s_pts, idx, valid):
         nbr_f, eqv = gather_neighborhood(s_pts, x, q_pts, idx, valid, self.scale)
         cros = torch.cross(nbr_f[..., 0, :], eqv, dim=-1)
         mean = eqv.mean(dim=2, keepdim=True).expand_as(eqv)
         inp = torch.cat([nbr_f, eqv[..., None, :], cros[..., None, :],
                          mean[..., None, :]], dim=-2)
-        return self.conv(inp).mean(dim=2)
+        return self.conv(inp, _slot_mask(q_mask, idx)).mean(dim=2)
 
 
 class VNNResnetBlock(nn.Module):
@@ -81,12 +91,13 @@ class VNNResnetBlock(nn.Module):
         self.unary = VNLinearLeakyReLU(out_dim // 2, out_dim)
         self.unary_shortcut = VNLinearLeakyReLU(in_dim, out_dim)
 
-    def forward(self, x, q_pts, s_pts, idx, valid):
+    def forward(self, x, q_pts, q_mask, s_pts, idx, valid):
         nbr_f, eqv = gather_neighborhood(s_pts, x, q_pts, idx, valid, self.scale)
-        h = self.conv(torch.cat([nbr_f, eqv[..., None, :]], dim=-2)).mean(dim=2)
-        h = self.unary(h)
+        h = self.conv(torch.cat([nbr_f, eqv[..., None, :]], dim=-2),
+                      _slot_mask(q_mask, idx)).mean(dim=2)
+        h = self.unary(h, q_mask)
         shortcut = nbr_f.max(dim=2).values if self.strided else x
-        return h + self.unary_shortcut(shortcut)
+        return h + self.unary_shortcut(shortcut, q_mask)
 
 
 class VNBlock(nn.Module):
@@ -96,8 +107,8 @@ class VNBlock(nn.Module):
         super().__init__()
         self.mlp = VNLinearLeakyReLU(in_dim, out_dim)
 
-    def forward(self, x):
-        return self.mlp(x)
+    def forward(self, x, mask):
+        return self.mlp(x, mask)
 
 
 def nearest_upsample(x: torch.Tensor, idx: torch.Tensor,
@@ -122,9 +133,10 @@ class _Decoder(nn.Module):
 
     def _decode(self, bottle, skips, pyr: Pyramid):
         x = nearest_upsample(bottle, pyr.upsamples[1], pyr.upsample_valid[1])
-        x = self.decoder_blocks[1](torch.cat([x, skips[1]], dim=-2))
+        x = self.decoder_blocks[1](torch.cat([x, skips[1]], dim=-2), pyr.masks[1])
         x = nearest_upsample(x, pyr.upsamples[0], pyr.upsample_valid[0])
-        return self.decoder_blocks[3](torch.cat([x, skips[0]], dim=-2))
+        return self.decoder_blocks[3](torch.cat([x, skips[0]], dim=-2),
+                                      pyr.masks[0])
 
 
 class EFCNN(_Decoder):
@@ -133,29 +145,31 @@ class EFCNN(_Decoder):
 
     def __init__(self, fd: int = 10, scale: float = 1.0):
         super().__init__(fd)
-        self.epsilon = nn.Parameter(torch.tensor(-5.0))   # unused, as in the reference
+        # unused, as in the reference; a buffer, so no optimizer moves it
+        self.register_buffer("epsilon", torch.tensor(-5.0))
         self.encoder_blocks = nn.ModuleList([
             VNNConvBlock(1, fd, scale),
             VNNResnetBlock(fd, fd, scale, True),
             VNNResnetBlock(fd, fd * 2, scale, False),
             VNNResnetBlock(fd * 2, fd * 2, scale, True),
             VNNResnetBlock(fd * 2, fd * 4, scale, False)])
-        self.fc_layer = nn.Sequential(VNLinearLeakyReLU(fd, fd // 2),
-                                      VNLinearLeakyReLU(fd // 2, 1))
+        self.fc_layer = nn.ModuleList([VNLinearLeakyReLU(fd, fd // 2),
+                                       VNLinearLeakyReLU(fd // 2, 1)])
         self.inv_layer = InvariantHead(fd, "sigmoid")
 
     def forward(self, pyr: Pyramid):
-        pts, nb, nv = pyr.points, pyr.neighbors, pyr.neighbor_valid
+        pts, msk = pyr.points, pyr.masks
+        nb, nv = pyr.neighbors, pyr.neighbor_valid
         enc = self.encoder_blocks
-        x0 = enc[0](pyr.features[..., None, :], pts[0], pts[0], nb[0], nv[0])
-        x1 = enc[1](x0, pts[1], pts[0], pyr.pools[0], pyr.pool_valid[0])
-        x1 = enc[2](x1, pts[1], pts[1], nb[1], nv[1])
-        x2 = enc[3](x1, pts[2], pts[1], pyr.pools[1], pyr.pool_valid[1])
-        x2 = enc[4](x2, pts[2], pts[2], nb[2], nv[2])
+        x0 = enc[0](pyr.features[..., None, :], pts[0], msk[0], pts[0], nb[0], nv[0])
+        x1 = enc[1](x0, pts[1], msk[1], pts[0], pyr.pools[0], pyr.pool_valid[0])
+        x1 = enc[2](x1, pts[1], msk[1], pts[1], nb[1], nv[1])
+        x2 = enc[3](x1, pts[2], msk[2], pts[1], pyr.pools[1], pyr.pool_valid[1])
+        x2 = enc[4](x2, pts[2], msk[2], pts[2], nb[2], nv[2])
         x = self._decode(x2, (x0, x1), pyr)
-        axis = self.fc_layer(x)[..., 0, :]
-        eps = self.inv_layer(x, pyr.masks[0])
-        return axis, eps, {"bottle": x2, "skips": (x0, x1)}
+        h = self.fc_layer[1](self.fc_layer[0](x, msk[0]), msk[0])
+        eps = self.inv_layer(x, msk[0])
+        return h[..., 0, :], eps, {"bottle": x2, "skips": (x0, x1)}
 
 
 class DetNet(_Decoder):
@@ -164,7 +178,8 @@ class DetNet(_Decoder):
 
     def __init__(self, fd: int = 10):
         super().__init__(fd)
-        self.epsilon = nn.Parameter(torch.tensor(-5.0))   # unused, as in the reference
+        # unused, as in the reference; a buffer, so no optimizer moves it
+        self.register_buffer("epsilon", torch.tensor(-5.0))
         self.invar_layer = InvariantHead(fd, "softplus")
 
     def forward(self, pyr: Pyramid, branch):

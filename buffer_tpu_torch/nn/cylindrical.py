@@ -2,7 +2,9 @@
 (counterpart of ``buffer_tpu/nn/cylindrical.py``; reference
 models/patchnet.py).  Channels-first (NCHW / NCDHW) as in the reference,
 with its ``ops.N`` parameter numbering; all batch norms are affine-free
-and use their running statistics."""
+and unmasked: PyTorch's own batch norm, running statistics in eval mode and
+batch statistics in train mode, the semantics of the JAX package's
+``MaskedBatchNorm`` without a mask."""
 
 from __future__ import annotations
 

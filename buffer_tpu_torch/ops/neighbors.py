@@ -7,8 +7,15 @@
 * :func:`nearest` -- 1-NN: the banded kernel
   (``kernels/knn_cuda.banded_nn1_cuda``) where the TPU path takes
   ``banded_nn1_tpu``, else the exact kernel ``kernels/geom_cuda.nearest_cuda``;
-* :func:`ball_sample_planes` -- random-priority ball sampling through
-  ``kernels/geom_cuda.ball_sample_planes_cuda``.
+* :func:`ball_sample_planes` and :func:`ball_sample_points` --
+  random-priority ball sampling through
+  ``kernels/geom_cuda.ball_sample_planes_cuda`` (coordinate planes, the
+  inference front) and ``ball_sample_points_cuda`` (stacked points, the
+  training front);
+* :func:`nearest_common_morton` -- 1-NN between two clouds that are not
+  sorted on one curve (the gt-warped source against the target when
+  training samples its matches): a joint Morton sort on the device, then
+  :func:`nearest`.
 
 All take a batch of clouds [B, ...] and validity masks.  The dispatch is
 the TPU path's own (``buffer_tpu/ops/neighbors.py:98-116, 402-411``):
@@ -22,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from buffer_tpu_torch.kernels.geom_cuda import (ball_sample_planes_cuda,
+                                                ball_sample_points_cuda,
                                                 nearest_cuda)
 from buffer_tpu_torch.kernels.knn_cuda import (banded_knn_cuda, banded_nn1_cuda,
                                                banded_supported,
@@ -127,6 +135,62 @@ def ball_sample_planes(query: torch.Tensor, support: torch.Tensor,
     pointnet2 ball_query over a shuffled cloud (models/patch_embedder.py:97)."""
     return ball_sample_planes_cuda(query, support, support_valid, prio,
                                    radius, k)
+
+
+def ball_sample_points(query: torch.Tensor, support: torch.Tensor,
+                       support_valid: torch.Tensor, prio: torch.Tensor,
+                       radius: float, k: int):
+    """:func:`ball_sample_planes` with the coordinates stacked: (points
+    [B, Q, k, 3], valid [B, Q, k]); the JAX package's
+    ``ball_sample_points_tpu`` (kernels/geom_pallas.py:115)."""
+    return ball_sample_points_cuda(query, support, support_valid, prio,
+                                   radius, k)
+
+
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of x (int64) to bit positions 0, 3, ..., 27."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton_codes(pts: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+                 span: torch.Tensor, bits: int = 10) -> torch.Tensor:
+    """Z-order codes [..] int64 of pts [.., 3] over the box (lo, lo + span),
+    code bit 3b+d from bit b of dimension d (``buffer_tpu/ops/
+    neighbors.py:296-307``, whose uint32 codes these equal); invalid rows
+    get 0xFFFFFFFF and sort last."""
+    top = float(2 ** bits - 1)
+    q = torch.clamp((pts - lo) / span * top, 0.0, top).to(torch.int64)
+    code = (_spread3(q[..., 0]) | (_spread3(q[..., 1]) << 1)
+            | (_spread3(q[..., 2]) << 2))
+    return torch.where(valid, code, torch.full_like(code, 0xFFFFFFFF))
+
+
+def nearest_common_morton(query: torch.Tensor, q_valid: torch.Tensor,
+                          support: torch.Tensor, s_valid: torch.Tensor,
+                          band: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-NN of query [Q, 3] over support [S, 3], two clouds not sorted on
+    one curve (``buffer_tpu/ops/neighbors.py:310-336``): both are sorted on
+    the Morton curve of their joint bounding box (stable sorts: codes of
+    10 bits a dimension tie often), :func:`nearest` runs on the sorted
+    arrays with ``band``, and the results return to the original order.
+    Returns (d2 [Q], idx [Q] int32 into the original support order)."""
+    big = lambda p, v, fill: torch.where(v[:, None], p, torch.full_like(p, fill))
+    lo = torch.minimum(big(query, q_valid, BIG).amin(0),
+                       big(support, s_valid, BIG).amin(0))
+    hi = torch.maximum(big(query, q_valid, -BIG).amax(0),
+                       big(support, s_valid, -BIG).amax(0))
+    span = torch.clamp(hi - lo, min=1e-9)
+    pq = torch.argsort(morton_codes(query, q_valid, lo, span), stable=True)
+    ps = torch.argsort(morton_codes(support, s_valid, lo, span), stable=True)
+    d2s, nns = nearest(query[pq][None], support[ps][None], s_valid[ps][None],
+                       band=band, query_valid=q_valid[pq][None])
+    inv = torch.empty_like(pq)
+    inv[pq] = torch.arange(pq.shape[0], device=pq.device)
+    return d2s[0][inv], ps[nns[0].long()][inv].to(torch.int32)
 
 
 def gather_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

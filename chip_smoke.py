@@ -19,16 +19,31 @@
    * the 3DMatch preset with ``knn_band = 0`` (exact unbanded search) on
      1 pair;
    * the single-cloud FPS entry point ``ops.sampling.farthest_point_sample``
-     on the main path's first source cloud.
-   Prints ms/pair and a per-stage breakdown (CUDA events) of each preset.
+     on the main path's first source cloud;
+   * "3DMatch train": stage-sequential training at the same full width
+     (``pos_num = 512`` positive pairs a step, 512-point patches, 420 SPT
+     anchors, ``voxel_sample = 10``) on the main path's first 2 pairs with
+     their ground-truth poses: one ``Trainer`` per stage, Ref -> Desc ->
+     Keypt -> Inlier, the others frozen, 3 train steps (the first a
+     warm-up) and 1 eval step each.  Every step's launches must equal
+     ``TRAIN_STEP``; losses finite; only the active stage's parameters
+     move, the frozen stages' running statistics stay; the best and epoch
+     checkpoints reload equal.
+   Prints ms/pair and a per-stage breakdown (CUDA events) of each preset,
+   and ms/step (host clock around a synchronized step) and peak memory
+   (``torch.cuda.max_memory_allocated``) of each training stage.
 3. Runs the first pair of each preset once more with the plain PyTorch
    versions of the kernels on the card (substituted at the kernels' call
    sites): keypoint indices and the mutual-match count must be equal, the
-   descriptors within 1e-3 and the pose within 1e-4.
+   descriptors within 1e-3 and the pose within 1e-4.  One Desc and one Ref
+   training step from the same state and draws, with the kernels and with
+   the plain versions, under PyTorch's deterministic algorithms: the loss
+   within 1e-5 relative, the updated parameters within 1e-6.
 4. Holds each kernel against its plain version at the main path's own
    inputs -- every call of the first pair (exact for the banded kNN, the
    banded 1-NN, 1-NN, both FPS entry points and ball sampling; 2e-5 for the
-   SPT front) -- and the banded kernels on the KITTI pair too; scores the
+   SPT front; exact for the training front's ball sampling on every call of
+   a Desc step) -- and the banded kernels on the KITTI pair too; scores the
    banded search against the exact dense search (recall of the true
    in-radius k-NN, > 0.97, and 1-NN index agreement, > 0.99, gated on
    3DMatch, printed for KITTI); times kernel, plain version, the exact
@@ -46,7 +61,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -71,6 +88,15 @@ PER_PAIR = {
                            "spt_pooled": 1},
     "farthest_point_sample": {"fps_single": 1},
 }
+TRAIN_PAIRS = 2
+TRAIN_STEPS = 3
+STAGES = ("Ref", "Desc", "Keypt", "Inlier")
+# launches per training (and eval) step on the 3DMatch preset: the pyramid
+# as above plus the banded 1-NN of the positive-pair sampler (30720 target
+# points > 2 * 4096), and both clouds' patches in one launch past Ref
+TRAIN_STEP = {"Ref": {"bknn": 4, "bnn1": 2, "nearest": 1}}
+TRAIN_STEP.update({s: dict(TRAIN_STEP["Ref"], ball_sample_points=1)
+                   for s in STAGES[1:]})
 
 
 def card_line() -> str:
@@ -103,10 +129,10 @@ def bound(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_launches(path: str, rose: dict) -> None:
-    """Every kernel of the path ran on this pair as often as the dispatch
-    says, and no other kernel ran."""
-    want = PER_PAIR[path]
+def check_launches(path: str, rose: dict, want: dict = None) -> None:
+    """Every kernel of the path ran on this pair (or step) as often as the
+    dispatch says, and no other kernel ran."""
+    want = PER_PAIR[path] if want is None else want
     if {k: v for k, v in rose.items() if v or k in want} != want:
         raise RuntimeError(f"{path}: launches {rose}, expected {want}")
 
@@ -321,11 +347,139 @@ def cdist_nn(q, s, valid, chunk=4096):
             for i in range(0, q.shape[1], chunk)]
 
 
+def state_of(model, stage: str) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.startswith(stage + ".")}
+
+
+def counted(fn, name: str, want: dict):
+    """fn() with the launches it makes checked against ``want``; returns
+    (result, host ms around the synchronized call)."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    before = cuda.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    after = cuda.launch_counts()
+    check_launches(name, {k: after[k] - before[k] for k in after}, want)
+    return out, ms
+
+
+def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
+    """Stage-sequential training through the ``Trainer`` entry points; every
+    count set to 0 just before and read just after.  Returns the summary
+    (raises on any failed check)."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train import checkpoint
+    from buffer_tpu_torch.train.trainer import BEST_METRIC, Trainer
+    from buffer_tpu_torch.utils.logging import MetricLogger
+
+    model = BufferModel(cfg, seed=0).to(dev)
+    logger = MetricLogger(os.path.join(save_dir, "metrics.jsonl"), echo=False)
+    stages = []
+    cuda.reset_launches()
+    for stage in STAGES:
+        trainer = Trainer(cfg, model, stage, save_dir, logger=logger, device=dev)
+        lr = trainer.set_epoch_lr(0)
+        before = {s: state_of(model, s) for s in STAGES}
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for i in range(TRAIN_STEPS):
+            draws = make_train_draws(cfg, gen, dev)
+            (loss, stats), t = counted(
+                lambda: trainer.step(batches[i % len(batches)], draws),
+                f"train {stage}", TRAIN_STEP[stage])
+            if not all(bool(torch.isfinite(v)) for v in stats.values()):
+                raise RuntimeError(f"train {stage}: non-finite stats {stats}")
+            if float(stats["grad_finite"]) != 1.0:
+                raise RuntimeError(f"train {stage}: a step was skipped")
+            ms.append(t)
+            losses.append(float(loss))
+        res, eval_ms = counted(lambda: trainer.evaluate(batches[:1], gen),
+                               f"eval {stage}", TRAIN_STEP[stage])
+        if not all(math.isfinite(v) for v in res.values()):
+            raise RuntimeError(f"eval {stage}: non-finite stats {res}")
+        trainer.end_epoch(0, res)
+        peak = torch.cuda.max_memory_allocated()
+        after = {s: state_of(model, s) for s in STAGES}
+        moved = [k for k, v in after[stage].items() if "running" not in k
+                 and "num_batches" not in k and not torch.equal(v, before[stage][k])]
+        if not moved:
+            raise RuntimeError(f"train {stage}: no parameter moved")
+        for s in STAGES:
+            if s != stage and any(not torch.equal(v, before[s][k])
+                                  for k, v in after[s].items()):
+                raise RuntimeError(f"train {stage}: frozen stage {s} changed")
+        sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        for name in ("best", 0):
+            got = checkpoint.load(trainer.checkpoint_path(name))
+            if set(got) != set(sd) or any(not torch.equal(got[k], sd[k])
+                                          for k in sd):
+                raise RuntimeError(f"train {stage}: checkpoint {name} does "
+                                   "not reload equal")
+        warm = ms[1:]
+        line = {"path": "3DMatch train", "stage": stage, "lr": lr,
+                "steps": TRAIN_STEPS, "first_step_ms": ms[0],
+                "ms_per_step": sum(warm) / len(warm), "step_ms": ms,
+                "eval_ms": eval_ms, "peak_mem_bytes": peak, "losses": losses,
+                "eval": res, "metric": BEST_METRIC[stage],
+                "params_moved": len(moved)}
+        print(json.dumps(line))
+        stages.append(line)
+    return {"model": model, "stages": stages, "launches": cuda.launch_counts()}
+
+
+def plain_train_check(stage, model, cfg, batch, draws, dev, save_dir) -> dict:
+    """One training step of ``stage`` from the same state and draws with the
+    kernels and with the plain versions, under PyTorch's deterministic
+    algorithms: loss within 1e-5 relative, updated parameters within 1e-6."""
+    import copy
+    import torch
+    from buffer_tpu_torch.kernels import cuda, sites
+    from buffer_tpu_torch.train.trainer import Trainer
+    from buffer_tpu_torch.utils.logging import MetricLogger
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for plain in (False, True):
+            m = copy.deepcopy(model)
+            tr = Trainer(cfg, m, stage, save_dir, device=dev,
+                         logger=MetricLogger(None, echo=False))
+            before = cuda.launch_counts()
+            with sites.plain_versions() if plain else contextlib.nullcontext():
+                loss, _ = tr.step(batch, draws)
+            if plain and cuda.launch_counts() != before:
+                raise RuntimeError(f"train {stage}: a kernel ran on the plain path")
+            runs.append((float(loss), state_of(m, stage)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lk, pk), (lp, pp) = runs
+    loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
+    param_err = max(float((pk[k].float() - pp[k].float()).abs().max())
+                    for k in pk if pk[k].is_floating_point())
+    out = {"path": "3DMatch train", "stage": stage, "loss_kernels": lk,
+           "loss_plain": lp, "loss_rel_err": loss_rel,
+           "param_max_abs_err": param_err}
+    print(json.dumps({"plain_train_check": out}))
+    if loss_rel > 1e-5 or param_err > 1e-6:
+        raise RuntimeError(f"train {stage}: kernel and plain steps disagree: {out}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
+    # cuBLAS's deterministic mode (plain_train_check) needs its workspace
+    # fixed before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     print(card_line())
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -407,11 +561,25 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     if int(fvalid.sum()) != min(K, int(elig0.sum())):
         raise RuntimeError("farthest_point_sample: wrong valid count")
 
+    # ---- stage-sequential training at full width -----------------------
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train.trainer import TrainBatch, eval_step
+    save_dir = str(cuda.BUILD_DIR / "train_smoke")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    batches = [TrainBatch(inp, torch.as_tensor(T, device=dev))
+               for inp, T in zip(pairs[:TRAIN_PAIRS], poses_gt[:TRAIN_PAIRS])]
+    tgen = torch.Generator(device=dev).manual_seed(1)
+    train = train_path(dev, cfg, batches, save_dir, tgen)
+    tmodel = train["model"]
+
     # ---- plain-path checks ----------------------------------------------
     checks = [plain_path_check("3DMatch", model, dev, pairs[0], draws[0],
                                (res_k, inter_k)),
               plain_path_check("KITTI", kmodel, dev, kpairs[0], kdraws[0],
                                (kres_k, kinter_k))]
+    tdraws = make_train_draws(cfg, tgen, dev)
+    train_checks = [plain_train_check(st, tmodel, cfg, batches[0], tdraws, dev,
+                                      save_dir) for st in ("Desc", "Ref")]
 
     # ---- each kernel against its plain version at the main-path inputs --
     kernels, reference = [], {}
@@ -536,9 +704,38 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
           cuda_ms(lambda: fps_cuda.fps_single_plain(sds0, elig0, K), 1),
           (K - 1) * N1 * 9, N1 * 13 + K * 4, None)
 
+    # 8. the training front's ball sampling: every call of one (eval) step
+    from buffer_tpu_torch.ops import neighbors
+    ball_calls = []
+    with capture(neighbors, "ball_sample_points_cuda", ball_calls):
+        eval_step(tmodel, "Desc", batches[0], tdraws, 1.05, dev)
+    if len(ball_calls) != 1:
+        raise RuntimeError(f"ball_sample_points: {len(ball_calls)} calls a step")
+    flops = nbytes = 0
+    for a in ball_calls:
+        outk = geom_cuda.ball_sample_points_cuda(*a)
+        outp = geom_cuda.ball_sample_points_plain(*a)
+        if not all(torch.equal(x, y) for x, y in zip(outk, outp)):
+            raise RuntimeError("ball_sample_points: kernel and plain differ")
+        q, sup, k = a[0], a[1], a[5]
+        B, Q, N = q.shape[0], q.shape[1], sup.shape[1]
+        flops += B * Q * N * 7
+        nbytes += B * (N * 17 + Q * 12 + Q * k * 13)
+    entry(geom_cuda.BALL_POINTS, train["launches"]["ball_sample_points"], 0.0,
+          sum(cuda_ms(lambda a=a: geom_cuda.ball_sample_points_cuda(*a), 10)
+              for a in ball_calls),
+          sum(cuda_ms(lambda a=a: geom_cuda.ball_sample_points_plain(*a), 2)
+              for a in ball_calls),
+          flops, nbytes, None)
+
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line],
+            "train": train["stages"], "train_launches": train["launches"],
+            "plain_train_checks": train_checks,
+            "ball_points_calls": [{"B": a[0].shape[0], "Q": a[0].shape[1],
+                                   "N": a[1].shape[1], "k": a[5]}
+                                  for a in ball_calls],
             "fps_single_launches": fcounts, "plain_path_checks": checks,
             "banded_calls": {"3DMatch": rows, "KITTI": krows},
             "banded_quality": quality, "exact_search_reference": reference,

@@ -56,6 +56,30 @@ def test_cuda_kernels_match_plain(card):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,N,k", [(2, 512, 65536, 512), (3, 13, 3072, 64)])
+def test_ball_sample_points_kernel_matches_plain(card, B, Q, N, k):
+    """The training front's ball sampling bit for bit against its plain
+    version: the full-width 3DMatch shape (both clouds' 512 patches of 512
+    points from 65536) and a ragged one (a partial query tile, invalid
+    support points)."""
+    cuda.build_all()
+    rs = np.random.RandomState(9)
+    sup = torch.from_numpy(rs.uniform(-1.5, 1.5, (B, N, 3)).astype(np.float32))
+    valid = torch.from_numpy(rs.rand(B, N) > 0.1)
+    q = sup[:, torch.from_numpy(rs.choice(N, Q, replace=False))]
+    prio = torch.from_numpy(rs.rand(B, N).astype(np.float32))
+    args = [t.to(card) for t in (q, sup, valid, prio)] + [0.3, k]
+    before = cuda.launch_counts()["ball_sample_points"]
+    got = geom_cuda.ball_sample_points_cuda(*args)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["ball_sample_points"] == before + 1
+    want = geom_cuda.ball_sample_points_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1].any() and not got[1].all()
+
+
 def _tiny_pair(cfg, card, n=900, extent=0.6):
     rs = np.random.RandomState(0)
     raw = rs.uniform(-extent, extent, (n, 3)).astype(np.float32)
