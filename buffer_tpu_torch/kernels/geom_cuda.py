@@ -14,6 +14,7 @@ wrapper raises when an input asks for a gradient.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -38,7 +39,7 @@ BALL_POINTS = cuda.register(cuda.Kernel(
     "buffer_tpu/kernels/geom_pallas.py:115"))
 SPT = cuda.register(cuda.Kernel(
     "spt_pooled", "buffer_tpu_torch/csrc/spt.cu", "spt_launch",
-    [P] * 14 + [I, I, I, I, F, P, P],
+    [P] * 12 + [I, I, I, I, I, I, F, I, I, I, I, P, P],
     "buffer_tpu/kernels/geom_pallas.py:419"))
 
 
@@ -245,9 +246,49 @@ def spt_layout(S: int, voxel_sample: int):
     return NUSE, NUSE * (S // NSEG)
 
 
+SPT_ANCHORS_A_THREAD = 4     # csrc/spt.cu kAT
+SPT_TARGET_THREADS = 320     # a block's threads the plan aims at
+SPT_MAX_THREADS = 512        # csrc/spt.cu kMaxThreads
+SPT_MAX_KEYPOINTS = 8
+SPT_MAX_SMEM = 96 * 1024
+
+
+def spt_smem_bytes(S_eff: int, A: int, NSEG: int, KB: int) -> int:
+    """Dynamic shared memory of a block of KB keypoints: the staged points
+    (16 bytes each), each point's staged position (4) and the (anchor,
+    segment) winners (2 each), rounded up to 16 bytes."""
+    b = KB * S_eff * 16 + S_eff * 4 + KB * NSEG * A * 2
+    return -(-b // 16) * 16
+
+
+def spt_plan(K: int, S_eff: int, A: int, NSEG: int) -> Tuple[int, int, int, int]:
+    """(anchor columns a scan thread AT, keypoints a block KB, threads a
+    block, dynamic shared bytes) of ``csrc/spt.cu`` for K keypoints of
+    S_eff points in NSEG segments and A anchor columns.  A keypoint takes
+    ceil(A / AT) threads; KB keypoints fill about SPT_TARGET_THREADS
+    threads, with no more keypoints than K and shared memory within
+    SPT_MAX_SMEM.  The last block holds K mod KB keypoints when that is not
+    0."""
+    G = -(-A // SPT_ANCHORS_A_THREAD)
+    if K < 1 or NSEG < 1 or S_eff % NSEG or G > SPT_MAX_THREADS:
+        raise ValueError(f"spt_pooled: no plan for K={K}, S={S_eff}, A={A}, "
+                         f"NSEG={NSEG}")
+    KB = max(1, min(SPT_MAX_KEYPOINTS, K, SPT_TARGET_THREADS // G))
+    while KB > 1 and (spt_smem_bytes(S_eff, A, NSEG, KB) > SPT_MAX_SMEM
+                      or -(-KB * G // 32) * 32 > SPT_MAX_THREADS):
+        KB -= 1
+    smem = spt_smem_bytes(S_eff, A, NSEG, KB)
+    if smem > SPT_MAX_SMEM:
+        raise ValueError(f"spt_pooled: S={S_eff} needs {smem} bytes of shared "
+                         "memory a keypoint")
+    return SPT_ANCHORS_A_THREAD, KB, -(-KB * G // 32) * 32, smem
+
+
+@functools.lru_cache(maxsize=None)
 def spt_anchor_terms(rad_n: int, azi_n: int, ele_n: int, device):
     """Anchor columns in azimuth-major order (column a*G + g): the ball-test
-    terms -2*ax, -2*ay, -2*az and |a|^2, each [A]."""
+    terms -2*ax, -2*ay, -2*az and |a|^2, each [A] (made once for each grid
+    and device)."""
     G = rad_n * ele_n
     anchors = torch.as_tensor(
         gridmath.get_voxel_coordinate(1.0, rad_n, azi_n, ele_n).reshape(-1, 3),
@@ -344,20 +385,28 @@ def spt_pooled_cuda(W_all: torch.Tensor, b_eff: torch.Tensor,
     if u.device.type == "cpu":
         return spt_pooled_plain(W_all, b_eff, f0, u, planes, R, rad_n, azi_n,
                                 ele_n, voxel_r, voxel_sample)
-    planes, R, u, anchor, NSEG = _spt_prepare(planes, R, u, rad_n, azi_n,
-                                              ele_n, voxel_sample)
-    w = spt_weight_columns(W_all.float(), rad_n * ele_n)
-    b_eff = b_eff.contiguous().float()
-    f0 = f0.contiguous().float()
-    cuda.check_cuda("spt_pooled", *planes, R, u, *anchor, *w, b_eff, f0)
-    K, S = planes[0].shape
-    A = w[0].shape[1]
+    K, S_full = planes[0].shape
     if K == 0:
         raise ValueError("spt_pooled: no keypoints")
+    NSEG, S = spt_layout(S_full, voxel_sample)
+    # the kernel reads the first S of each row in place
+    planes = tuple(p.float() for p in planes)
+    if any(p.stride(1) != 1 or p.stride(0) != planes[0].stride(0)
+           for p in planes):
+        planes = tuple(p.contiguous() for p in planes)
+    anchor = spt_anchor_terms(rad_n, azi_n, ele_n, u.device)
+    R, u = R.float().contiguous(), u[:S].float().contiguous()
+    W_all, b_eff, f0 = (t.float().contiguous() for t in (W_all, b_eff, f0))
+    if W_all.data_ptr() % 16:                  # the kernel loads rows as float4
+        W_all = W_all.clone()
+    cuda.check_cuda("spt_pooled", *planes, R, u, *anchor, W_all, b_eff, f0)
+    A = rad_n * ele_n * azi_n
+    plan = spt_plan(K, S, A, NSEG)
     out = torch.empty((K, 16, A), dtype=torch.float32, device=u.device)
-    SPT.launch(*(t.data_ptr() for t in (*planes, R, u, *anchor, *w, b_eff, f0)),
-               K, S, A, NSEG, float(voxel_r) ** 2, out.data_ptr(),
-               cuda.stream_handle(u))
+    SPT.launch(*(t.data_ptr() for t in (*planes, R, u, *anchor, W_all, b_eff,
+                                        f0)),
+               K, S, planes[0].stride(0), A, azi_n, NSEG, float(voxel_r) ** 2,
+               *plan, out.data_ptr(), cuda.stream_handle(u))
     return _pooled_layout(out, rad_n, azi_n, ele_n)
 
 

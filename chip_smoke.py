@@ -43,7 +43,8 @@
    inputs -- every call of the first pair (exact for the banded kNN, the
    banded 1-NN, 1-NN, both FPS entry points and ball sampling; 2e-5 for the
    SPT front; exact for the training front's ball sampling on every call of
-   a Desc step) -- and the banded kernels on the KITTI pair too; scores the
+   a Desc step) -- and the banded kernels and the batched FPS on the KITTI
+   pair too (FPS timed there as well, and per step of its chain); scores the
    banded search against the exact dense search (recall of the true
    in-radius k-NN, > 0.97, and 1-NN index agreement, > 0.99, gated on
    3DMatch, printed for KITTI); times kernel, plain version, the exact
@@ -511,7 +512,8 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     logs = cuda.build_all()
     build_s = time.time() - t0
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln] for k, v in logs.items()}
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
+             for k, v in logs.items()}
     print(json.dumps({"build_s": build_s, "ptxas": ptxas}))
 
     p = cfg.patch
@@ -584,12 +586,13 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     # ---- each kernel against its plain version at the main-path inputs --
     kernels, reference = [], {}
 
-    def entry(kern, launches, err, ms, plain_ms, flops, nbytes, lib_ms):
+    def entry(kern, launches, err, ms, plain_ms, flops, nbytes, lib_ms,
+              **extra):
         b_ms, b_by = bound(flops, nbytes)
         e = {"name": kern.name, "route": "cuda", "source": kern.source,
              "replaces": kern.replaces, "launches": launches,
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, **extra}
         print(json.dumps(e))
         kernels.append(e)
 
@@ -609,20 +612,37 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
               + a[0].shape[0] * a[0].shape[1] * 8 for a in nn_args),
           sum(cuda_ms(lambda a=a: cdist_nn(*a), 5) for a in nn_args))
 
-    # 2. batched FPS on the detector-eligible points
+    # 2. batched FPS on the detector-eligible points, at the 3DMatch pair's
+    # shape and (checked and timed, not in the bound) the KITTI pair's
+    def fps_check(path, sds, elig, kidx, n):
+        ik = fps_cuda.fps_cuda_batched(sds, elig, n)
+        ip = fps_cuda.fps_plain(sds, elig, n)
+        if not torch.equal(ik, ip):
+            raise RuntimeError(f"fps ({path}): kernel and plain indices differ")
+        if not torch.equal(ik, kidx):
+            raise RuntimeError(f"fps ({path}): not the path's keypoints")
+        return float((ik - ip).abs().max())
+
     sds = pairs[0].sds
     elig = pairs[0].sds_mask & (inter_k["score"] > cfg.point.keypts_th)
-    ik = fps_cuda.fps_cuda_batched(sds, elig, K)
-    ip = fps_cuda.fps_plain(sds, elig, K)
-    if not torch.equal(ik, ip):
-        raise RuntimeError("fps: kernel and plain indices differ")
-    if not torch.equal(ik, inter_k["kidx"]):
-        raise RuntimeError("fps: not the main path's keypoints")
+    fps_err = fps_check("3DMatch", sds, elig, inter_k["kidx"], K)
+    ksds = kpairs[0].sds
+    kelig = kpairs[0].sds_mask & (kinter_k["score"] > kcfg.point.keypts_th)
+    KK_fps = kcfg.point.num_keypts
+    fps_err = max(fps_err, fps_check("KITTI", ksds, kelig, kinter_k["kidx"],
+                                     KK_fps))
     B, N = elig.shape
-    entry(fps_cuda.FPS, counts["fps"], float((ik - ip).abs().max()),
-          cuda_ms(lambda: fps_cuda.fps_cuda_batched(sds, elig, K), 5),
+    fps_ms = cuda_ms(lambda: fps_cuda.fps_cuda_batched(sds, elig, K), 5)
+    entry(fps_cuda.FPS, counts["fps"], fps_err, fps_ms,
           cuda_ms(lambda: fps_cuda.fps_plain(sds, elig, K), 1),
-          B * (K - 1) * N * 9, B * N * 13 + B * K * 4, None)
+          B * (K - 1) * N * 9, B * N * 13 + B * K * 4, None,
+          per_step_us=1e3 * fps_ms / (K - 1), plan=fps_cuda.fps_plan(N),
+          max_active_clusters=fps_cuda.fps_max_active_clusters(
+              fps_cuda.fps_plan(N)),
+          ms_kitti=cuda_ms(
+              lambda: fps_cuda.fps_cuda_batched(ksds, kelig, KK_fps), 5),
+          kitti_shape=list(kelig.shape), plan_kitti=fps_cuda.fps_plan(
+              kelig.shape[1]), ptxas=ptxas["fps"])
 
     # 3. ball sampling of both clouds' patches
     ball_args = (inter_k["kpts"], pairs[0].raw, pairs[0].raw_mask,
@@ -656,7 +676,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         spt_err = float((spk - spp).abs().max())
         if spt_err > 2e-5:
             raise RuntimeError(f"spt_pooled: kernel and plain differ by {spt_err}")
-        _, S_eff = geom_cuda.spt_layout(k, p.voxel_sample)
+        NUSE, S_eff = geom_cuda.spt_layout(k, p.voxel_sample)
         A = p.rad_n * p.ele_n * p.azi_n
         KK = 2 * K
         winners = geom_cuda.spt_valid_winners(planes, R_all, draws[0].spt_prio,
@@ -667,7 +687,9 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
               cuda_ms(lambda: geom_cuda.spt_pooled_plain(*spt_args), 2),
               KK * A * S_eff * 7 + winners * 16 * 8 + KK * S_eff * 20,
               KK * S_eff * 12 + KK * 36 + S_eff * 4 + KK * 16 * A * 4
-              + A * 48 * 4, None)
+              + A * 48 * 4, None,
+              valid_winners=winners, slots=KK * A * NUSE,
+              plan=geom_cuda.spt_plan(KK, S_eff, A, NUSE), ptxas=ptxas["spt_pooled"])
 
     # 5.-6. the banded kNN (both stages) and the banded 1-NN, every call of
     # the pair; the KITTI pair's calls checked and scored, not timed
@@ -699,10 +721,11 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         raise RuntimeError("fps_single: differs from the batched kernel or "
                            "the plain version")
     N1 = sds0.shape[0]
-    entry(fps_cuda.FPS_SINGLE, fcounts["fps_single"], 0.0,
-          cuda_ms(lambda: sampling.farthest_point_sample(sds0, elig0, K), 5),
+    single_ms = cuda_ms(lambda: sampling.farthest_point_sample(sds0, elig0, K), 5)
+    entry(fps_cuda.FPS_SINGLE, fcounts["fps_single"], 0.0, single_ms,
           cuda_ms(lambda: fps_cuda.fps_single_plain(sds0, elig0, K), 1),
-          (K - 1) * N1 * 9, N1 * 13 + K * 4, None)
+          (K - 1) * N1 * 9, N1 * 13 + K * 4, None,
+          per_step_us=1e3 * single_ms / (K - 1))
 
     # 8. the training front's ball sampling: every call of one (eval) step
     from buffer_tpu_torch.ops import neighbors

@@ -80,6 +80,78 @@ def test_ball_sample_points_kernel_matches_plain(card, B, Q, N, k):
     assert got[1].any() and not got[1].all()
 
 
+def _fps_cloud(N, B, seed):
+    """B clouds of N points with eligibility holes (a run and scattered
+    points) and exact duplicates across the first and last CTAs of the
+    plan: a far pair that ties on the first step and a copied block."""
+    rs = np.random.RandomState(seed)
+    pts = rs.randn(B, N, 3).astype(np.float32)
+    elig = rs.rand(B, N) > 0.2
+    elig[:, N // 3:N // 3 + N // 10] = False
+    if N >= 64:
+        C, T, P = fps_cuda.fps_plan(N)
+        j = (C - 1) * T * P + 1 if C > 1 else N - 1   # the last CTA's share
+        pts[:, 2] = pts[:, j] = (30.0, 30.0, -30.0)
+        elig[:, [2, j]] = True
+        n = min(N // 8, N - j - 1)
+        pts[:, j + 1:j + 1 + n] = pts[:, 5:5 + n]
+    return pts, elig
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("N", [1, 31, 1024, 1025, 8192, 30720, 40960, 65536])
+def test_fps_cluster_kernel_matches_plain(card, N, B):
+    """The cluster FPS bit-equal to its plain version at every fps_plan
+    boundary, with ties across CTAs and eligibility holes; fewer points
+    than samples at the small sizes.  One launch each."""
+    cuda.build_all()
+    pts, elig = (torch.from_numpy(a).to(card) for a in _fps_cloud(N, B, N + B))
+    S = 48 if N < 64 else 256
+    before = cuda.launch_counts()["fps"]
+    got = fps_cuda.fps_cuda_batched(pts, elig, S)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["fps"] == before + 1
+    want = fps_cuda.fps_plain(pts, elig, S)
+    assert torch.equal(got, want)
+    if N >= 64:
+        assert (got[:, 1] == 2).all()          # the tie goes to the lower index
+    single = fps_cuda.fps_cuda_single(pts[0], elig[0], S)
+    assert torch.equal(single, want[0])
+
+
+@pytest.mark.cuda
+def test_fps_bad_plan_raises(card, monkeypatch):
+    """A plan the launcher does not take raises (no fallback): more threads
+    than the register budget of 16 points a thread allows."""
+    cuda.build_all()
+    monkeypatch.setattr(fps_cuda, "fps_plan", lambda N: (8, 1024, 16))
+    pts = torch.zeros((1, 65536, 3), device=card)
+    with pytest.raises(RuntimeError):
+        fps_cuda.fps_cuda_batched(pts, torch.ones((1, 65536), dtype=torch.bool,
+                                                  device=card), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [100, 2999])
+def test_spt_kernel_matches_plain_ragged(card, K):
+    """The SPT kernel against its plain version (2e-5) at keypoint counts
+    that leave a ragged last block (3 keypoints a block at the preset's
+    shapes), 512-point patches, 420 anchor columns."""
+    cuda.build_all()
+    rs = np.random.RandomState(K)
+    g = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(card)
+    _, KB, _, _ = geom_cuda.spt_plan(K, 320, 420, 10)
+    assert K % KB
+    planes = tuple(g(K, 512) * 0.4 for _ in range(3))
+    R = torch.linalg.qr(g(K, 3, 3))[0].contiguous()
+    args = (g(20, 3, 16), g(16), torch.relu(g(16)), torch.rand(512, device=card),
+            planes, R, 3, 20, 7, 0.8 / 3, 10)
+    got = geom_cuda.spt_pooled_cuda(*args)
+    torch.testing.assert_close(got, geom_cuda.spt_pooled_plain(*args),
+                               rtol=2e-5, atol=2e-5)
+
+
 def _tiny_pair(cfg, card, n=900, extent=0.6):
     rs = np.random.RandomState(0)
     raw = rs.uniform(-extent, extent, (n, 3)).astype(np.float32)
