@@ -31,11 +31,11 @@ NEAREST = cuda.register(cuda.Kernel(
     "buffer_tpu/kernels/geom_pallas.py:269"))
 BALL = cuda.register(cuda.Kernel(
     "ball_sample", "buffer_tpu_torch/csrc/ball.cu", "ball_launch",
-    [P, P, P, P, P, P, I, I, I, I, F, P, P, P, P, P],
+    [P] * 4 + [I] * 4 + [F] + [I] * 6 + [P] * 7,
     "buffer_tpu/kernels/geom_pallas.py:182"))
 BALL_POINTS = cuda.register(cuda.Kernel(
     "ball_sample_points", "buffer_tpu_torch/csrc/ball.cu", "ball_points_launch",
-    [P, P, P, P, P, P, I, I, I, I, F, P, P, P],
+    [P] * 4 + [I] * 4 + [F] + [I] * 6 + [P] * 5,
     "buffer_tpu/kernels/geom_pallas.py:115"))
 SPT = cuda.register(cuda.Kernel(
     "spt_pooled", "buffer_tpu_torch/csrc/spt.cu", "spt_launch",
@@ -176,57 +176,113 @@ def _check_ball(name: str, query, support, k: int) -> None:
     cuda.check_no_grad(name, query, support)
 
 
-def _ball_kernel_inputs(name: str, query, support, support_valid, prio, k: int):
-    """Contiguous f32 queries and the five [B, L, NS] support grids."""
-    query = query.contiguous().float()
-    u = torch.where(support_valid, prio, torch.full_like(prio, -BIG))
-    grids = _ball_grids(support.float(), u.float(), k // 2)
-    cuda.check_cuda(name, query, *grids)
-    return query, grids
+BALL_THREADS = 256         # csrc/ball.cu kMaxThreads: threads a block
+BALL_SEGMENTS = 32         # segments a block (a slice)
+BALL_CHUNK_POINTS = 512    # grid points a ring chunk (rows x segments)
+BALL_RING = 3              # ring chunks in flight
+BALL_QUERIES = (4, 8)      # queries a thread the kernel is built for
+BALL_MAX_ROWS = 1 << 16    # points a segment: a row fits 16 bits
+BALL_MIN_BLOCKS = 2 * 132  # two blocks on each of the H100's 132 SMs
+
+
+def ball_smem_bytes(NSB: int, CH: int, ring: int) -> int:
+    """Dynamic shared memory of a ``csrc/ball.cu`` block: ``ring`` chunks of
+    CH rows of its NSB segments (16 + 4 bytes a point), one mbarrier each."""
+    return ring * (CH * NSB * 20 + 8)
+
+
+def ball_plan(B: int, Q: int, L: int, NS: int
+              ) -> Tuple[int, int, int, int, int, int]:
+    """(queries a thread QT, query groups QG, segments a block NSB, rows a
+    chunk CH, ring chunks, dynamic shared bytes) of ball sampling over B
+    clouds of Q queries and NS segments of L points.  A block takes a slice
+    of NSB = BALL_SEGMENTS segments (fewer, in whole warps, when NS is
+    smaller) and QG = BALL_THREADS / NSB groups of QT queries, so the
+    grids leave L2 once for every QG*QT queries; QT is 8 when the blocks
+    still number BALL_MIN_BLOCKS, else 4.  Raises on what the kernel does
+    not take."""
+    if B < 1 or Q < 1 or not 1 <= L <= BALL_MAX_ROWS or NS < 1:
+        raise ValueError(f"ball_sample: no plan for B={B}, Q={Q}, L={L}, "
+                         f"NS={NS}")
+    NSB = min(BALL_SEGMENTS, -(-NS // 32) * 32)
+    QG = BALL_THREADS // NSB
+    G = -(-NS // NSB)
+    QT = 8 if B * G * -(-Q // (QG * 8)) >= BALL_MIN_BLOCKS else 4
+    CH = max(4, BALL_CHUNK_POINTS // NSB // 4 * 4)
+    return QT, QG, NSB, CH, BALL_RING, ball_smem_bytes(NSB, CH, BALL_RING)
+
+
+def ball_launcher(kern, query, support, support_valid, prio, radius: float,
+                  k: int, outs, plan=None):
+    """The wrappers' preparation (contiguous inputs, the plan, the packed
+    grids' scratch), returning a function that makes one call of
+    ``csrc/ball.cu`` (pack, then select) into ``outs`` (the x, y, z planes
+    or the stacked points, then validity as bytes) with it: the C launch
+    alone, which ``chip_smoke.py`` times beside the wrapper;
+    ``utils/plan_sweep.py`` passes other plans."""
+    q = query.float().contiguous()
+    s = support.float().contiguous()
+    sv = support_valid.contiguous().to(torch.bool).view(torch.uint8)
+    u = prio.float().contiguous()
+    B, Q, _ = q.shape
+    NS = k // 2
+    L = s.shape[1] // NS
+    plan = ball_plan(B, Q, L, NS) if plan is None else plan
+    _, _, NSB, CH, _, _ = plan
+    G, Lp = -(-NS // NSB), -(-L // CH) * CH
+    grid = torch.empty((B, G, Lp, NSB, 4), dtype=torch.float32, device=q.device)
+    ugrid = torch.empty((B, G, Lp, NSB), dtype=torch.float32, device=q.device)
+    cuda.check_cuda(kern.name, q, s, sv, u, grid, ugrid, *outs)
+    args = (q.data_ptr(), s.data_ptr(), sv.data_ptr(), u.data_ptr(), B, Q, L,
+            NS, float(radius) ** 2, *plan, grid.data_ptr(), ugrid.data_ptr(),
+            *(o.data_ptr() for o in outs), cuda.stream_handle(q))
+
+    def launch():
+        kern.launch(*args)
+
+    launch.tensors = (q, s, sv, u, grid, ugrid, outs)  # alive while it is
+    return launch
 
 
 def ball_sample_planes_cuda(query, support, support_valid, prio,
                             radius: float, k: int):
     """Ball sampling of :func:`ball_sample_planes_plain`, batched over
-    clouds (reference: pointnet2 ball_query over a shuffled cloud)."""
+    clouds, in one call of ``csrc/ball.cu`` (reference: pointnet2
+    ball_query over a shuffled cloud): a pack kernel lays the support out
+    as segment columns of float4 (x, y, z, |s|^2) and masked priorities,
+    then each block of :func:`ball_plan` streams them once through shared
+    memory for its queries and keeps each segment's top 2 on a hit."""
     _check_ball("ball_sample", query, support, k)
     if query.device.type == "cpu":
         return ball_sample_planes_plain(query, support, support_valid, prio,
                                         radius, k)
-    query, grids = _ball_kernel_inputs("ball_sample", query, support,
-                                       support_valid, prio, k)
     B, Q, _ = query.shape
-    x, y, z = (torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
-               for _ in range(3))
-    v = torch.empty((B, Q, k), dtype=torch.uint8, device=query.device)
-    BALL.launch(query.data_ptr(), *(g.data_ptr() for g in grids), B, Q,
-                support.shape[1] // (k // 2), k // 2, float(radius) ** 2,
-                x.data_ptr(), y.data_ptr(), z.data_ptr(), v.data_ptr(),
-                cuda.stream_handle(query))
-    return x, y, z, v.bool()
+    outs = [torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
+            for _ in range(3)]
+    outs.append(torch.empty((B, Q, k), dtype=torch.bool, device=query.device))
+    ball_launcher(BALL, query, support, support_valid, prio, radius, k,
+                  [outs[0], outs[1], outs[2], outs[3].view(torch.uint8)])()
+    return tuple(outs)
 
 
 def ball_sample_points_cuda(query, support, support_valid, prio,
                             radius: float, k: int):
-    """Ball sampling of :func:`ball_sample_points_plain` in one launch over
+    """Ball sampling of :func:`ball_sample_points_plain` in one call over
     all clouds: query [B, Q, 3], support [B, N, 3], support_valid and the
     priorities prio [B, N] -> (points [B, Q, k, 3], valid [B, Q, k]); k even,
-    k/2 <= 1024 dividing N.  The points are copies of support points (no
-    backward; see the module docstring)."""
+    k/2 <= 1024 dividing N.  The same kernel as
+    :func:`ball_sample_planes_cuda`, writing stacked points.  The points are
+    copies of support points (no backward; see the module docstring)."""
     _check_ball("ball_sample_points", query, support, k)
     if query.device.type == "cpu":
         return ball_sample_points_plain(query, support, support_valid, prio,
                                         radius, k)
-    query, grids = _ball_kernel_inputs("ball_sample_points", query, support,
-                                       support_valid, prio, k)
     B, Q, _ = query.shape
     pts = torch.empty((B, Q, k, 3), dtype=torch.float32, device=query.device)
-    v = torch.empty((B, Q, k), dtype=torch.uint8, device=query.device)
-    BALL_POINTS.launch(query.data_ptr(), *(g.data_ptr() for g in grids), B, Q,
-                       support.shape[1] // (k // 2), k // 2,
-                       float(radius) ** 2, pts.data_ptr(), v.data_ptr(),
-                       cuda.stream_handle(query))
-    return pts, v.bool()
+    v = torch.empty((B, Q, k), dtype=torch.bool, device=query.device)
+    ball_launcher(BALL_POINTS, query, support, support_valid, prio, radius, k,
+                  [pts, v.view(torch.uint8)])()
+    return pts, v
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,10 @@ results are indices and distances of input points: no gradient flows
 through them, there is no backward kernel, and a wrapper raises when an
 input asks for a gradient.  The
 kernels derive each tile's window start from the two valid counts on the
-card, in the order of :func:`window_starts`.  The plain versions repeat the
-kernels' separately rounded arithmetic, so on the card kernel and plain
-version agree bit for bit.
+card, in the order of :func:`window_starts` (``bknn.cu`` counts them while
+it packs the support; ``bnn1.cu`` takes the wrapper's two sums).  The
+plain versions repeat the kernels' separately rounded arithmetic, so on
+the card kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ TILE_CHUNK = 4             # tiles per step of the plain versions
 
 BKNN = cuda.register(cuda.Kernel(
     "bknn", "buffer_tpu_torch/csrc/bknn.cu", "bknn_launch",
-    [P, P, P, P, P, I, I, I, I, I, I, F, I, P, P, P, P],
+    [P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P, P, P, P, P, P],
     "buffer_tpu/kernels/geom_pallas.py:632"))
 BNN1 = cuda.register(cuda.Kernel(
     "bnn1", "buffer_tpu_torch/csrc/bnn1.cu", "bnn1_launch",
@@ -108,6 +109,32 @@ def window_starts(support_valid: torch.Tensor, query_valid: torch.Tensor,
     row = (i * Q_TILE + Q_TILE / 2)[None, :] * ratio[:, None] / NSEG
     r0 = (row / 8.0 + 0.5).to(torch.int32) * 8 - LW // 2
     return torch.clamp(r0, 0, max(((NR - LW) // 8) * 8, 0)).to(torch.int32)
+
+
+BKNN_CHUNK_ROWS = 8        # csrc/bknn.cu kChunkRows: rows a ring chunk
+BKNN_CHUNK_BYTES = BKNN_CHUNK_ROWS * NSEG * 16
+BKNN_THREADS = 256         # a tile's 2 groups of 16 queries x 128 columns
+BKNN_RING = 4              # ring chunks in flight (utils/plan_sweep.py)
+
+
+def bknn_smem_bytes(ring: int) -> int:
+    """Dynamic shared memory of a ``csrc/bknn.cu`` block: the ring of
+    chunks or, once the window is read, the 256 candidates of its 32
+    queries; the queries; one mbarrier a chunk."""
+    body = max(ring * BKNN_CHUNK_BYTES, Q_TILE * 2 * NSEG * 4)
+    return body + Q_TILE * 12 + ring * 8
+
+
+def bknn_plan(B: int, Q: int, S: int, LW: int) -> Tuple[int, int, int]:
+    """(threads, ring chunks, dynamic shared bytes) of the banded kNN over
+    B clouds of Q queries and S support points with an LW-row window: one
+    tile of 32 queries a block, BKNN_RING chunks in flight.  Raises on what
+    the kernel does not take."""
+    NR = -(-S // NSEG)
+    if (B < 1 or Q < 1 or LW % 16 or not 16 <= LW <= min(64, NR)
+            or NR * NSEG > (1 << 16)):
+        raise ValueError(f"bknn: no plan for B={B}, Q={Q}, S={S}, LW={LW}")
+    return BKNN_THREADS, BKNN_RING, bknn_smem_bytes(BKNN_RING)
 
 
 def support_grid(support: torch.Tensor, support_valid: torch.Tensor,
@@ -255,7 +282,7 @@ def _check(name, query, support, support_valid, query_valid):
 
 
 def _kernel_inputs(name, query, support, support_valid, query_valid):
-    """The kernels' inputs: contiguous f32 points, the support mask as
+    """The banded 1-NN's inputs: contiguous f32 points, the support mask as
     bytes and the valid counts of both (each block derives its window from
     them)."""
     q = query.float().contiguous()
@@ -268,12 +295,46 @@ def _kernel_inputs(name, query, support, support_valid, query_valid):
     return q, s, sv, n_s, n_q
 
 
+def bknn_launcher(query, support, support_valid, query_valid, k: int,
+                  radius: Optional[float], win_rows: int, outs, plan=None):
+    """The wrapper's preparation (contiguous inputs, the plan, the packed
+    support's scratch), returning a function that makes one call of
+    ``csrc/bknn.cu`` (pack, then search) into ``outs`` (d2, idx, validity
+    as bytes); ``utils/plan_sweep.py`` passes other plans."""
+    B, Q, _ = query.shape
+    S = support.shape[1]
+    NR, LW = window_rows(S, win_rows)
+    plan = bknn_plan(B, Q, S, LW) if plan is None else plan
+    q = query.float().contiguous()
+    s = support.float().contiguous()
+    sv, qv = (m.contiguous().to(torch.bool).view(torch.uint8)
+              for m in (support_valid, query_valid))
+    packed = torch.empty((B, NR * NSEG, 4), dtype=torch.float32,
+                         device=q.device)
+    counts = torch.empty((B, 2), dtype=torch.int32, device=q.device)
+    cuda.check_cuda("bknn", q, s, sv, qv, packed, counts, *outs)
+    r2 = 0.0 if radius is None else float(radius) ** 2
+    args = (q.data_ptr(), s.data_ptr(), sv.data_ptr(), qv.data_ptr(), B, Q, S,
+            NR, LW, k, r2, int(radius is not None), *plan, packed.data_ptr(),
+            counts.data_ptr(), *(o.data_ptr() for o in outs),
+            cuda.stream_handle(q))
+
+    def launch():
+        BKNN.launch(*args)
+
+    launch.tensors = (q, s, sv, qv, packed, counts, outs)  # alive while it is
+    return launch
+
+
 def banded_knn_cuda(query: torch.Tensor, support: torch.Tensor,
                     support_valid: torch.Tensor, query_valid: torch.Tensor,
                     k: int, radius: Optional[float],
                     win_rows: int = KNN_WIN_ROWS):
-    """Banded radius-kNN of :func:`banded_knn_plain`, both stages in one
-    launch over all clouds."""
+    """Banded radius-kNN of :func:`banded_knn_plain` over all clouds in one
+    call of ``csrc/bknn.cu``: a pack kernel writes the support as float4
+    (x, y, z, 0 or 1e9 for an invalid rank) and counts the valid points,
+    then each block (one tile of 32 queries) streams its window rows once
+    through shared memory and runs both stages."""
     _check("bknn", query, support, support_valid, query_valid)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"bknn: k={k} must be in 1..{MAX_K}")
@@ -281,16 +342,12 @@ def banded_knn_cuda(query: torch.Tensor, support: torch.Tensor,
         return banded_knn_plain(query, support, support_valid, query_valid, k,
                                 radius, win_rows)
     B, Q, _ = query.shape
-    S = support.shape[1]
-    NR, LW = window_rows(S, win_rows)
-    ins = _kernel_inputs("bknn", query, support, support_valid, query_valid)
-    d = torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
-    i = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
-    v = torch.empty((B, Q, k), dtype=torch.bool, device=query.device)
-    r2 = 0.0 if radius is None else float(radius) ** 2
-    BKNN.launch(*(t.data_ptr() for t in ins), B, Q, S, NR, LW, k, r2,
-                int(radius is not None), d.data_ptr(), i.data_ptr(),
-                v.data_ptr(), cuda.stream_handle(ins[0]))
+    dev = query.device
+    d = torch.empty((B, Q, k), dtype=torch.float32, device=dev)
+    i = torch.empty((B, Q, k), dtype=torch.int32, device=dev)
+    v = torch.empty((B, Q, k), dtype=torch.bool, device=dev)
+    bknn_launcher(query, support, support_valid, query_valid, k, radius,
+                  win_rows, [d, i, v.view(torch.uint8)])()
     return d, i, v
 
 

@@ -44,13 +44,19 @@
    banded 1-NN, 1-NN, both FPS entry points and ball sampling; 2e-5 for the
    SPT front; exact for the training front's ball sampling on every call of
    a Desc step) -- and the banded kernels and the batched FPS on the KITTI
-   pair too (FPS timed there as well, and per step of its chain); scores the
+   pair too (both timed there as well, the banded calls kernel only; FPS
+   per step of its chain too); scores the
    banded search against the exact dense search (recall of the true
    in-radius k-NN, > 0.97, and 1-NN index agreement, > 0.99, gated on
    3DMatch, printed for KITTI); times kernel, plain version, the exact
    search the banded kernels stand in for and, where one PyTorch call
-   computes the same function, that call (CUDA events after warm-up); and
-   computes each kernel's bound from this run's inputs.
+   computes the same function, that call (CUDA events after warm-up), and
+   ball sampling also around its C launch alone (pack and select, without
+   the wrapper's preparation); computes each kernel's bound from this run's
+   inputs, and, on a line of derived figures of its own, the issue floor of
+   the banded kNN and of ball sampling (this run's tests x issue slots a
+   test, counted by hand in the inner loops, over every fp32 lane at the
+   card's maximum SM clock).
 
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds every kernel's
@@ -71,6 +77,15 @@ import time
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
+SMS, LANES = 132, 128        # H100 SXM: SMs, fp32 lanes an SM
+# issue slots a test, counted by hand in the kernels' inner loops
+# (cuobjdump -sass, sm_90a) and not checked by this script: bknn 3 FADD
+# (differences), 3 FMUL + 2 FADD (d2), the penalty FADD, the floor FMNMX, a
+# LOP3 (row) and 3 FMNMX (winner, runner-up); ball sampling on a miss 3 FMUL
+# + 3 FADD, 2 FSETP, a branch and its BSSY/BSYNC.  Recount them when an
+# inner loop changes.
+BKNN_SLOTS = 14
+BALL_SLOTS = 11
 N_PAIRS = 3
 N_KITTI_PAIRS = 2
 KITTI_SEED = 13
@@ -105,6 +120,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def issue_floor_ms(tests: float, slots: int, clock_hz: float) -> float:
+    """Milliseconds of pure issue: tests x slots over every fp32 lane."""
+    return 1e3 * tests * slots / (SMS * LANES * clock_hz)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -273,11 +301,11 @@ def knn_recall(got, exact, query_valid, r2_prefix=None) -> float:
     return float((hit[ok].float() / n[ok].float()).mean())
 
 
-def banded_entries(calls, cfg, check_only: bool = False):
+def banded_entries(calls, cfg, time_plain: bool = True):
     """Checks the banded kernels bit-equal to their plain versions on every
-    recorded call, scores them against the exact search and (unless
-    ``check_only``) times them.  Returns per-kernel sums and per-call
-    rows."""
+    recorded call, scores them against the exact search and times them
+    (the plain versions and the exact search too when ``time_plain``).
+    Returns per-kernel sums and per-call rows."""
     import torch
     from buffer_tpu_torch.kernels import knn_cuda
     from buffer_tpu_torch.ops import neighbors
@@ -288,9 +316,9 @@ def banded_entries(calls, cfg, check_only: bool = False):
         rows.append(row)
         s = sums.setdefault(kernel, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
                                      "exact_ms": 0.0, "flops": 0.0,
-                                     "bytes": 0.0, "score": []})
+                                     "bytes": 0.0, "tests": 0, "score": []})
         s["calls"] += 1
-        for key in ("ms", "plain_ms", "exact_ms", "flops", "bytes"):
+        for key in ("ms", "plain_ms", "exact_ms", "flops", "bytes", "tests"):
             s[key] += row.get(key) or 0.0
         s["score"].append(row["score"])
 
@@ -307,10 +335,12 @@ def banded_entries(calls, cfg, check_only: bool = False):
         _, LW = knn_cuda.window_rows(S, wr)
         row = {"kernel": "bknn", "Q": Q, "S": S, "k": k, "radius": radius,
                "window_rows": LW, "score": score,
+               "tests": B * Q * LW * knn_cuda.NSEG,
                "flops": B * Q * LW * knn_cuda.NSEG * 8,
-               "bytes": B * (Q * 13 + S * 13 + Q * k * 9)}
-        if not check_only:
-            row["ms"] = cuda_ms(lambda: knn_cuda.banded_knn_cuda(*args), 20)
+               "bytes": B * (Q * 13 + S * 13 + Q * k * 9),
+               "plan": knn_cuda.bknn_plan(B, Q, S, LW)}
+        row["ms"] = cuda_ms(lambda: knn_cuda.banded_knn_cuda(*args), 20)
+        if time_plain:
             row["plain_ms"] = cuda_ms(lambda: knn_cuda.banded_knn_plain(*args), 2)
             row["exact_ms"] = cuda_ms(
                 lambda: neighbors.radius_knn(q, s, sv, k, radius), 3)
@@ -328,8 +358,8 @@ def banded_entries(calls, cfg, check_only: bool = False):
         row = {"kernel": "bnn1", "Q": Q, "S": S, "window_rows": LW,
                "score": score, "flops": B * Q * LW * knn_cuda.NSEG * 8,
                "bytes": B * (Q * 13 + S * 13 + Q * 8)}
-        if not check_only:
-            row["ms"] = cuda_ms(lambda: knn_cuda.banded_nn1_cuda(q, s, sv, qv), 20)
+        row["ms"] = cuda_ms(lambda: knn_cuda.banded_nn1_cuda(q, s, sv, qv), 20)
+        if time_plain:
             row["plain_ms"] = cuda_ms(
                 lambda: knn_cuda.banded_nn1_plain(q, s, sv, qv), 2)
             row["exact_ms"] = cuda_ms(lambda: cdist_nn(q, s, sv), 3)
@@ -644,7 +674,20 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
           kitti_shape=list(kelig.shape), plan_kitti=fps_cuda.fps_plan(
               kelig.shape[1]), ptxas=ptxas["fps"])
 
-    # 3. ball sampling of both clouds' patches
+    # 3. ball sampling of both clouds' patches: timed around the wrapper
+    # and around the C launch alone (pack and select, without the wrapper's
+    # preparation)
+    clock = sm_clock_hz()
+    floors = {}
+
+    def floor(name, slots, **tests):
+        floors[name] = {"slots_a_test": slots, **tests, **{
+            "issue_floor_ms" + key[5:]: issue_floor_ms(n, slots, clock)
+            for key, n in tests.items()}}
+
+    def ball_launch_ms(kern, args, outs):
+        return cuda_ms(geom_cuda.ball_launcher(kern, *args, outs), 10)
+
     ball_args = (inter_k["kpts"], pairs[0].raw, pairs[0].raw_mask,
                  draws[0].ball_prio, p.des_r, p.num_points_per_patch)
     outk = geom_cuda.ball_sample_planes_cuda(*ball_args)
@@ -658,7 +701,13 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
           max(float((a.float() - b.float()).abs().max()) for a, b in zip(outk, outp)),
           cuda_ms(lambda: geom_cuda.ball_sample_planes_cuda(*ball_args), 10),
           cuda_ms(lambda: geom_cuda.ball_sample_planes_plain(*ball_args), 2),
-          Bq * Q * Nr * 7, Bq * (Nr * 17 + Q * 12 + Q * k * 13), None)
+          Bq * Q * Nr * 7, Bq * (Nr * 17 + Q * 12 + Q * k * 13), None,
+          launch_ms=ball_launch_ms(geom_cuda.BALL, ball_args,
+                                   [torch.empty_like(outk[0]) for _ in range(3)]
+                                   + [torch.empty_like(outk[3]).view(torch.uint8)]),
+          plan=geom_cuda.ball_plan(Bq, Q, Nr // (k // 2), k // 2),
+          valid_slots=int(outk[3].sum()), ptxas=ptxas["ball_sample"])
+    floor("ball_sample", BALL_SLOTS, tests=Bq * Q * Nr)
 
     # 4. the fused SPT front of both clouds' keypoints
     kpts = inter_k["kpts"]
@@ -692,10 +741,11 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
               plan=geom_cuda.spt_plan(KK, S_eff, A, NUSE), ptxas=ptxas["spt_pooled"])
 
     # 5.-6. the banded kNN (both stages) and the banded 1-NN, every call of
-    # the pair; the KITTI pair's calls checked and scored, not timed
+    # the pair; the KITTI pair's calls checked, scored and timed (the plain
+    # versions there too slow to time)
     from buffer_tpu_torch.kernels import knn_cuda
     sums, rows = banded_entries(calls, cfg)
-    ksums, krows = banded_entries(kcalls, kcfg, check_only=True)
+    ksums, krows = banded_entries(kcalls, kcfg, time_plain=False)
     quality = {"3DMatch": {n: s["score"] for n, s in sums.items()},
                "KITTI": {n: s["score"] for n, s in ksums.items()}}
     print(json.dumps({"banded_quality": quality}))
@@ -705,7 +755,11 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     for kern, name in ((knn_cuda.BKNN, "bknn"), (knn_cuda.BNN1, "bnn1")):
         s = sums[name]
         entry(kern, counts[name], 0.0, s["ms"], s["plain_ms"], s["flops"],
-              s["bytes"], None)
+              s["bytes"], None, ms_kitti=ksums[name]["ms"],
+              calls_kitti=ksums[name]["calls"], ptxas=ptxas[name])
+        if name == "bknn":
+            floor("bknn", BKNN_SLOTS, tests=s["tests"],
+                  tests_kitti=ksums[name]["tests"])
         reference[name] = {"exact_search_ms": s["exact_ms"], "calls": s["calls"],
                            "what": ("ops.neighbors.radius_knn with band=None"
                                     if name == "bknn" else
@@ -734,7 +788,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         eval_step(tmodel, "Desc", batches[0], tdraws, 1.05, dev)
     if len(ball_calls) != 1:
         raise RuntimeError(f"ball_sample_points: {len(ball_calls)} calls a step")
-    flops = nbytes = 0
+    flops = nbytes = tests = 0
     for a in ball_calls:
         outk = geom_cuda.ball_sample_points_cuda(*a)
         outp = geom_cuda.ball_sample_points_plain(*a)
@@ -742,6 +796,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             raise RuntimeError("ball_sample_points: kernel and plain differ")
         q, sup, k = a[0], a[1], a[5]
         B, Q, N = q.shape[0], q.shape[1], sup.shape[1]
+        tests += B * Q * N
         flops += B * Q * N * 7
         nbytes += B * (N * 17 + Q * 12 + Q * k * 13)
     entry(geom_cuda.BALL_POINTS, train["launches"]["ball_sample_points"], 0.0,
@@ -749,7 +804,17 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
               for a in ball_calls),
           sum(cuda_ms(lambda a=a: geom_cuda.ball_sample_points_plain(*a), 2)
               for a in ball_calls),
-          flops, nbytes, None)
+          flops, nbytes, None,
+          launch_ms=sum(ball_launch_ms(
+              geom_cuda.BALL_POINTS, a,
+              [torch.empty((*a[0].shape[:2], a[5], 3), device=dev),
+               torch.empty(a[0].shape[:2] + (a[5],), dtype=torch.uint8,
+                           device=dev)]) for a in ball_calls),
+          ptxas=ptxas["ball_sample_points"])
+    floor("ball_sample_points", BALL_SLOTS, tests=tests)
+    derived = {"sm_clock_mhz": clock / 1e6, "sms": SMS, "fp32_lanes": LANES,
+               "kernels": floors}
+    print(json.dumps({"issue_floor": derived}))
 
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
@@ -762,7 +827,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "fps_single_launches": fcounts, "plain_path_checks": checks,
             "banded_calls": {"3DMatch": rows, "KITTI": krows},
             "banded_quality": quality, "exact_search_reference": reference,
-            "kernels": kernels,
+            "kernels": kernels, "issue_floor": derived,
             "pose_gt": {"3DMatch": [T.tolist() for T in poses_gt],
                         "KITTI": [T.tolist() for T in kposes_gt]}}
 

@@ -252,3 +252,118 @@ def test_banded_kernels_match_plain(card, radius):
     single = fps_cuda.fps_cuda_single(sup[1], sv[1], 300)
     assert torch.equal(single, fps_cuda.fps_cuda_batched(sup[1:], sv[1:], 300)[0])
     assert torch.equal(single, fps_cuda.fps_single_plain(sup[1], sv[1], 300))
+
+
+def _equal(got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,k,radius", [
+    ("self duplicates", 16, None), ("self duplicates", 1, 0.05),
+    ("ratio 3", 16, 0.1), ("ratio 3", 128, None),
+    ("ratio 1/3", 16, 0.08), ("mirror ties", 128, 0.3)])
+def test_bknn_kernel_matches_plain_at_model_cases(card, case, k, radius):
+    """The banded kNN bit-equal to its plain version on the model tests'
+    inputs (tests/test_torch_kernel_models.py: floored zero distances, ties
+    across rows, invalid points in windows, ragged Q and S, valid-count
+    ratios 3 and 1/3, starts clipped at both ends), 16- and 64-row windows,
+    through the wrapper and with a ring of 2 chunks."""
+    from test_torch_kernel_models import _bknn_case
+    from buffer_tpu_torch.utils.plan_sweep import bknn_variant, poisoned
+    cuda.build_all()
+    qry, sup, sv, qv = (t.to(card) for t in
+                        _bknn_case(case, np.random.RandomState(k)))
+    for wr in (16, 64):
+        args = (qry, sup, sv, qv, k, radius, wr)
+        want = knn_cuda.banded_knn_plain(*args)
+        assert _equal(knn_cuda.banded_knn_cuda(*args), want)
+        got = poisoned(want)
+        knn_cuda.bknn_launcher(*args, got[:2] + [got[2].view(torch.uint8)],
+                               bknn_variant(2))()
+        assert _equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["3DMatch", "KITTI"])
+def test_bknn_kernel_matches_plain_at_preset_calls(card, preset):
+    """Every banded call shape of the preset's pyramid (4 on 3DMatch, 5 on
+    KITTI) on seeded Morton-sorted surfaces with invalid points, one
+    launch each."""
+    from test_torch_kernel_models import _banded_calls
+    from buffer_tpu_torch.config import kitti_cfg
+    cfg = threedmatch_cfg() if preset == "3DMatch" else kitti_cfg()
+    cuda.build_all()
+    rs = np.random.RandomState(3)
+    for B, Q, S, LW in _banded_calls(cfg):
+        sup, sv = _sorted_clouds(rs, B, S, S - 700, card)
+        sv[0, S // 4:S // 4 + 500] = False
+        if Q == S:
+            qry, qv = sup, sv
+        else:
+            qry, qv = _sorted_clouds(rs, B, Q, Q - 300, card)
+        radius = None if Q == S == cfg.static.points_l0 else 0.1
+        before = cuda.launch_counts()["bknn"]
+        got = knn_cuda.banded_knn_cuda(qry, sup, sv, qv, 16, radius)
+        assert cuda.launch_counts()["bknn"] == before + 1
+        assert _equal(got, knn_cuda.banded_knn_plain(qry, sup, sv, qv, 16,
+                                                     radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,N,Q,k", [
+    ("distinct", 2, 4096, 37, 64), ("ties", 2, 4096, 37, 64),
+    ("ties", 1, 2400, 20, 600), ("distinct", 2, 1536, 9, 6),
+    ("distinct", 2, 65536, 1500, 512), ("ties", 2, 131072, 1500, 512),
+    ("distinct", 2, 65536, 512, 512), ("distinct", 2, 65536, 777, 512)])
+def test_ball_kernels_match_plain_at_model_and_preset_shapes(card, case, B, N,
+                                                             Q, k):
+    """Ball sampling, planes and points, bit-equal to the plain versions on
+    the model tests' inputs (tied priorities, in-ball invalid points,
+    segments with 0 and 1 in-ball points, two slices of segments), at the
+    presets' inference shapes, the training shape and a ragged Q; through
+    the wrappers and through the C launch with 4 and 8 queries a thread
+    and slices of 32 and 256 segments."""
+    from test_torch_kernel_models import _ball_inputs
+    from buffer_tpu_torch.utils.plan_sweep import ball_variant, poisoned
+    cuda.build_all()
+    args = _ball_inputs(case, np.random.RandomState(Q), B, N, Q, k, 0.3)
+    args = tuple(t.to(card) for t in args[:4]) + args[4:]
+    NS = k // 2
+    want = geom_cuda.ball_sample_planes_plain(*args)
+    assert _equal(geom_cuda.ball_sample_planes_cuda(*args), want)
+    pts, v = geom_cuda.ball_sample_points_cuda(*args)
+    assert torch.equal(pts, torch.stack(want[:3], -1))
+    assert torch.equal(v, want[3])
+    for qt in geom_cuda.BALL_QUERIES:
+        for nsb in (32, 256):
+            plan = ball_variant(NS, qt, nsb, geom_cuda.BALL_RING)
+            got = poisoned(want)
+            geom_cuda.ball_launcher(geom_cuda.BALL, *args,
+                                    got[:3] + [got[3].view(torch.uint8)],
+                                    plan)()
+            assert _equal(got, want)
+            pts, v = poisoned([torch.stack(want[:3], -1), want[3]])
+            geom_cuda.ball_launcher(geom_cuda.BALL_POINTS, *args,
+                                    [pts, v.view(torch.uint8)], plan)()
+            assert torch.equal(pts, torch.stack(want[:3], -1))
+            assert torch.equal(v, want[3])
+
+
+@pytest.mark.cuda
+def test_bknn_and_ball_bad_plans_raise(card):
+    """A plan the launchers do not take raises (no fallback)."""
+    cuda.build_all()
+    sup, sv = _sorted_clouds(np.random.RandomState(0), 1, 4096, 4000, card)
+    d = torch.empty((1, 4096, 16), device=card)
+    i = torch.empty((1, 4096, 16), dtype=torch.int32, device=card)
+    v = torch.empty((1, 4096, 16), dtype=torch.uint8, device=card)
+    with pytest.raises(RuntimeError):
+        knn_cuda.bknn_launcher(sup, sup, sv, sv, 16, None, 16, [d, i, v],
+                               (512, 4, knn_cuda.bknn_smem_bytes(4)))()
+    prio = torch.rand((1, 4096), device=card)
+    outs = [torch.empty((1, 10, 64), device=card) for _ in range(3)]
+    outs.append(torch.empty((1, 10, 64), dtype=torch.uint8, device=card))
+    with pytest.raises(RuntimeError):
+        geom_cuda.ball_launcher(geom_cuda.BALL, sup[:, :10], sup, sv, prio,
+                                0.3, 64, outs, (12, 8, 32, 16, 3, 30744))()
