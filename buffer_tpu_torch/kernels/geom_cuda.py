@@ -27,7 +27,7 @@ BIG = 1e9
 
 NEAREST = cuda.register(cuda.Kernel(
     "nearest", "buffer_tpu_torch/csrc/nearest.cu", "nearest_launch",
-    [P, P, P, I, I, I, P, P, P],
+    [P, P, P, I, I, I, I, I, P, P, P],
     "buffer_tpu/kernels/geom_pallas.py:269"))
 BALL = cuda.register(cuda.Kernel(
     "ball_sample", "buffer_tpu_torch/csrc/ball.cu", "ball_launch",
@@ -73,26 +73,77 @@ def nearest_plain(query: torch.Tensor, support: torch.Tensor,
     return d_out, i_out
 
 
-def nearest_cuda(query: torch.Tensor, support: torch.Tensor,
-                 valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact 1-NN of :func:`nearest_plain`, batched over clouds."""
-    cuda.check_no_grad("nearest", query, support)
-    if query.device.type == "cpu":
-        return nearest_plain(query, support, valid)
-    query = query.contiguous().float()
-    support = support.contiguous().float()
-    valid_u8 = valid.to(torch.uint8).contiguous()
-    cuda.check_cuda("nearest", query, support, valid_u8)
+NEAREST_THREADS = 256        # csrc/nearest.cu kThreads: 8 warps a CTA
+NEAREST_WARPS = NEAREST_THREADS // 32
+NEAREST_QUERIES_ALLOWED = (1, 2, 4, 8)   # csrc/nearest.cu's instantiations
+NEAREST_CLUSTER = 2          # CTAs a cluster (utils/plan_sweep.py)
+NEAREST_MAX_CLUSTER = 8      # the portable cluster size
+NEAREST_TARGET_CTAS = 4 * 132   # four CTAs for each of the H100's SMs
+NEAREST_MIN_RUN = 32         # a warp scans no fewer support points
+NEAREST_MAX_SLICE = 12288    # csrc/nearest.cu kMaxSlice: points a CTA stages
+
+
+def nearest_plan(B: int, Q: int, S: int) -> Tuple[int, int]:
+    """(queries a thread, CTAs a cluster) of the exact 1-NN over B clouds
+    of Q queries and S support points.  A cluster takes 32*queries queries
+    of one cloud and splits the support among its CTAs: NEAREST_CLUSTER
+    of them (one when that leaves a warp fewer than NEAREST_MIN_RUN
+    points), doubled until a CTA's slice is at most NEAREST_MAX_SLICE
+    points (what its shared memory holds); then the most queries a thread,
+    of 4, 2 and 1, that still give the grid NEAREST_TARGET_CTAS.  Raises
+    on a support no cluster takes."""
+    if B < 1 or Q < 1 or S < 1:
+        raise ValueError(f"nearest: no plan for B={B}, Q={Q}, S={S}")
+    P = NEAREST_CLUSTER
+    if S // (P * NEAREST_WARPS) < NEAREST_MIN_RUN:
+        P = 1
+    while P <= NEAREST_MAX_CLUSTER and -(-S // P) > NEAREST_MAX_SLICE:
+        P *= 2
+    if P > NEAREST_MAX_CLUSTER:
+        raise ValueError(f"nearest: a support of {S} points does not fit a "
+                         "cluster's shared memory")
+    qt = next((q for q in (4, 2) if B * -(-Q // (32 * q)) * P
+               >= NEAREST_TARGET_CTAS), 1)
+    return qt, P
+
+
+def nearest_launcher(query, support, valid, outs, plan=None):
+    """The wrapper's preparation (contiguous inputs, the mask as bytes
+    without a copy, the plan), returning a function that makes one launch
+    of ``csrc/nearest.cu`` into ``outs`` (d2, idx);
+    ``utils/plan_sweep.py`` passes other plans."""
     B, Q, _ = query.shape
     S = support.shape[1]
     if Q == 0 or S == 0 or support.shape[0] != B or valid.shape != (B, S):
-        raise ValueError(f"nearest: bad shapes {query.shape}, "
-                         f"{support.shape}, {valid.shape}")
+        raise ValueError(f"nearest: bad shapes {tuple(query.shape)}, "
+                         f"{tuple(support.shape)}, {tuple(valid.shape)}")
+    plan = nearest_plan(B, Q, S) if plan is None else plan
+    q = query.float().contiguous()
+    s = support.float().contiguous()
+    v = valid.contiguous().to(torch.bool).view(torch.uint8)
+    cuda.check_cuda("nearest", q, s, v, *outs)
+    args = (q.data_ptr(), s.data_ptr(), v.data_ptr(), B, Q, S, *plan,
+            *(o.data_ptr() for o in outs), cuda.stream_handle(q))
+
+    def launch():
+        NEAREST.launch(*args)
+
+    launch.tensors = (q, s, v, outs)  # alive while it is
+    return launch
+
+
+def nearest_cuda(query: torch.Tensor, support: torch.Tensor,
+                 valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of :func:`nearest_plain`, batched over clouds, in one
+    launch of ``csrc/nearest.cu`` (thread-block clusters that split the
+    support, merged through distributed shared memory)."""
+    cuda.check_no_grad("nearest", query, support)
+    if query.device.type == "cpu":
+        return nearest_plain(query, support, valid)
+    B, Q, _ = query.shape
     d = torch.empty((B, Q), dtype=torch.float32, device=query.device)
     i = torch.empty((B, Q), dtype=torch.int32, device=query.device)
-    NEAREST.launch(query.data_ptr(), support.data_ptr(), valid_u8.data_ptr(),
-                   B, Q, S, d.data_ptr(), i.data_ptr(),
-                   cuda.stream_handle(query))
+    nearest_launcher(query, support, valid, [d, i])()
     return d, i
 
 

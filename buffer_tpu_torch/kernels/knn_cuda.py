@@ -24,8 +24,8 @@ results are indices and distances of input points: no gradient flows
 through them, there is no backward kernel, and a wrapper raises when an
 input asks for a gradient.  The
 kernels derive each tile's window start from the two valid counts on the
-card, in the order of :func:`window_starts` (``bknn.cu`` counts them while
-it packs the support; ``bnn1.cu`` takes the wrapper's two sums).  The
+card, in the order of :func:`window_starts` (both sources count them while
+they pack the support).  The
 plain versions repeat the kernels' separately rounded arithmetic, so on
 the card kernel and plain version agree bit for bit.
 """
@@ -57,7 +57,7 @@ BKNN = cuda.register(cuda.Kernel(
     "buffer_tpu/kernels/geom_pallas.py:632"))
 BNN1 = cuda.register(cuda.Kernel(
     "bnn1", "buffer_tpu_torch/csrc/bnn1.cu", "bnn1_launch",
-    [P, P, P, P, P, I, I, I, I, I, P, P, P],
+    [P, P, P, P, I, I, I, I, I, P, P, P, P, P],
     "buffer_tpu/kernels/geom_pallas.py:897"))
 
 
@@ -135,6 +135,20 @@ def bknn_plan(B: int, Q: int, S: int, LW: int) -> Tuple[int, int, int]:
             or NR * NSEG > (1 << 16)):
         raise ValueError(f"bknn: no plan for B={B}, Q={Q}, S={S}, LW={LW}")
     return BKNN_THREADS, BKNN_RING, bknn_smem_bytes(BKNN_RING)
+
+
+BNN1_QUERIES = 8           # queries a thread (utils/plan_sweep.py)
+BNN1_QUERIES_ALLOWED = (4, 8, 16)   # csrc/bnn1.cu's instantiations
+
+
+def bnn1_plan(B: int, Q: int, S: int) -> int:
+    """Queries a thread of the banded 1-NN over B clouds of Q queries and S
+    support points (a block takes one tile of 32 queries, a warp
+    BNN1_QUERIES of them).  Raises on a support the kernel does not take."""
+    NR = -(-S // NSEG)
+    if B < 1 or Q < 1 or NR * NSEG > (1 << 16) or NR < NN1_WIN_ROWS:
+        raise ValueError(f"bnn1: no plan for B={B}, Q={Q}, S={S}")
+    return BNN1_QUERIES
 
 
 def support_grid(support: torch.Tensor, support_valid: torch.Tensor,
@@ -281,20 +295,6 @@ def _check(name, query, support, support_valid, query_valid):
     cuda.check_no_grad(name, query, support)
 
 
-def _kernel_inputs(name, query, support, support_valid, query_valid):
-    """The banded 1-NN's inputs: contiguous f32 points, the support mask as
-    bytes and the valid counts of both (each block derives its window from
-    them)."""
-    q = query.float().contiguous()
-    s = support.float().contiguous()
-    sv = support_valid.contiguous()
-    sv = sv.view(torch.uint8) if sv.dtype == torch.bool else sv.to(torch.uint8)
-    n_s = support_valid.sum(1)
-    n_q = query_valid.sum(1)
-    cuda.check_cuda(name, q, s, sv, n_s, n_q)
-    return q, s, sv, n_s, n_q
-
-
 def bknn_launcher(query, support, support_valid, query_valid, k: int,
                   radius: Optional[float], win_rows: int, outs, plan=None):
     """The wrapper's preparation (contiguous inputs, the plan, the packed
@@ -351,18 +351,47 @@ def banded_knn_cuda(query: torch.Tensor, support: torch.Tensor,
     return d, i, v
 
 
+def bnn1_launcher(query, support, support_valid, query_valid, outs,
+                  queries=None):
+    """The wrapper's preparation (contiguous inputs, the plan, the packed
+    support's scratch), returning a function that makes one call of
+    ``csrc/bnn1.cu`` (pack, then search) into ``outs`` (d2, idx);
+    ``utils/plan_sweep.py`` passes other queries a thread."""
+    B, Q, _ = query.shape
+    S = support.shape[1]
+    NR, _ = window_rows(S, NN1_WIN_ROWS)
+    queries = bnn1_plan(B, Q, S) if queries is None else queries
+    q = query.float().contiguous()
+    s = support.float().contiguous()
+    sv, qv = (m.contiguous().to(torch.bool).view(torch.uint8)
+              for m in (support_valid, query_valid))
+    packed = torch.empty((B, NR * NSEG, 4), dtype=torch.float32,
+                         device=q.device)
+    counts = torch.empty((B, 2), dtype=torch.int32, device=q.device)
+    cuda.check_cuda("bnn1", q, s, sv, qv, packed, counts, *outs)
+    args = (q.data_ptr(), s.data_ptr(), sv.data_ptr(), qv.data_ptr(), B, Q, S,
+            NR, queries, packed.data_ptr(), counts.data_ptr(),
+            *(o.data_ptr() for o in outs), cuda.stream_handle(q))
+
+    def launch():
+        BNN1.launch(*args)
+
+    launch.tensors = (q, s, sv, qv, packed, counts, outs)  # alive while it is
+    return launch
+
+
 def banded_nn1_cuda(query: torch.Tensor, support: torch.Tensor,
                     support_valid: torch.Tensor, query_valid: torch.Tensor):
-    """Banded 1-NN of :func:`banded_nn1_plain` in one launch."""
+    """Banded 1-NN of :func:`banded_nn1_plain` in one call of
+    ``csrc/bnn1.cu``: a pack kernel writes the support as float4 (x, y, z,
+    0 or 1e9 for an invalid rank) and counts the valid points, then each
+    block (one tile of 32 queries) copies its window into shared memory
+    once."""
     _check("bnn1", query, support, support_valid, query_valid)
     if query.device.type == "cpu":
         return banded_nn1_plain(query, support, support_valid, query_valid)
     B, Q, _ = query.shape
-    S = support.shape[1]
-    NR, LW = window_rows(S, NN1_WIN_ROWS)
-    ins = _kernel_inputs("bnn1", query, support, support_valid, query_valid)
     d = torch.empty((B, Q), dtype=torch.float32, device=query.device)
     i = torch.empty((B, Q), dtype=torch.int32, device=query.device)
-    BNN1.launch(*(t.data_ptr() for t in ins), B, Q, S, NR, LW, d.data_ptr(),
-                i.data_ptr(), cuda.stream_handle(ins[0]))
+    bnn1_launcher(query, support, support_valid, query_valid, [d, i])()
     return d, i

@@ -57,9 +57,17 @@ def knn_route(support_size: int, band: Optional[int]) -> str:
 
 def nearest_route(support_size: int, band: Optional[int]) -> str:
     """"banded" (the banded 1-NN kernel) when the band restricts the search
-    and the kernel takes the support, else "exact"."""
+    and the kernel takes the support, else "exact".  Raises for a
+    restricting band the kernel cannot take: the reference's XLA fallback
+    ``nearest_banded`` is not ported."""
     S = support_size
-    return "banded" if band and 2 * band < S and banded_supported(S) else "exact"
+    if band and 2 * band < S:
+        if banded_supported(S):
+            return "banded"
+        raise NotImplementedError(
+            f"nearest_banded (the XLA fallback for a support of {S} points, "
+            f"band {band}) is not ported")
+    return "exact"
 
 
 def _query_mask(query: torch.Tensor, query_valid: Optional[torch.Tensor]):

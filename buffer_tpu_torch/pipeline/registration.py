@@ -7,7 +7,9 @@ descriptors of both clouds in one batch, mutual matching, the SO(2) cost
 volume, hypothesis voting, batched RANSAC and IRLS refinement.  Four stages
 run through the CUDA kernels of ``kernels/``: the pyramid's neighbour
 tables (banded radius-kNN, banded and exact 1-NN), FPS, patch ball
-sampling and the fused SPT front.
+sampling and the fused SPT front (with ``static.fused_desc`` off, the
+reference's sampled front instead: stacked-point ball sampling, then the
+sampled SPT in PyTorch).
 
 Everything runs in fp32 at full precision (TF32 off for matmuls and cuDNN
 convolutions), as the reference runs at ``default_matmul_precision
@@ -98,19 +100,35 @@ def orient_axes(axis: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 def describe_both(model: BufferModel, cfg: Config, draws: Draws, raw, raw_mask,
                   kpts, axes):
-    """MiniSpinNet over both clouds' keypoints in one batch: patches per
-    cloud, aligned coordinate planes concatenated to [2K, S]."""
+    """MiniSpinNet over both clouds' keypoints in one batch [2K, ...].
+
+    With ``cfg.static.fused_desc`` the fused front: patches as coordinate
+    planes, then the SPT, point MLP and sample max in one kernel.
+    Otherwise the reference's sampled front
+    (``buffer_tpu/pipeline/registration.py:124-164``): stacked patches,
+    centred, scaled by des_r and rotated as ``delta @ R``, the sampled
+    :func:`~buffer_tpu_torch.models.patch_embedder.spt`, then the network
+    on the sampled patches."""
     p = cfg.patch
     K = kpts.shape[1]
-    x, y, z = pe.extract_patch_planes(raw, raw_mask, draws.ball_prio, kpts,
-                                      p.des_r, p.num_points_per_patch)
-    planes = tuple(((c - kpts[..., d:d + 1]) / p.des_r).reshape(2 * K, -1)
-                   for d, c in enumerate((x, y, z)))
     R_all = pe.align_rotation(cfg.data.dataset, axes.reshape(2 * K, 3))
-    pooled = pe.fused_point_features(
-        model.Desc, draws.spt_prio, planes, R_all, p.rad_n, p.azi_n, p.ele_n,
-        p.delta / p.rad_n, p.voxel_sample)
-    desc, equi = model.Desc(pooled)
+    if cfg.static.fused_desc:
+        x, y, z = pe.extract_patch_planes(raw, raw_mask, draws.ball_prio, kpts,
+                                          p.des_r, p.num_points_per_patch)
+        planes = tuple(((c - kpts[..., d:d + 1]) / p.des_r).reshape(2 * K, -1)
+                       for d, c in enumerate((x, y, z)))
+        pooled = pe.fused_point_features(
+            model.Desc, draws.spt_prio, planes, R_all, p.rad_n, p.azi_n,
+            p.ele_n, p.delta / p.rad_n, p.voxel_sample)
+        desc, equi = model.Desc(pooled)
+    else:
+        patches = pe.extract_patches(raw, raw_mask, draws.ball_prio, kpts,
+                                     p.des_r, p.num_points_per_patch)
+        delta = (patches - patches[:, :, -1:]) / p.des_r
+        delta = delta.reshape(2 * K, -1, 3) @ R_all
+        inv = pe.spt(draws.spt_prio, delta, p.rad_n, p.azi_n, p.ele_n,
+                     p.delta / p.rad_n, p.voxel_sample)
+        desc, equi = model.Desc(inv_patches=inv)
     Rs = R_all.reshape(2, K, 3, 3)
     return (desc[:K], equi[:K], Rs[0]), (desc[K:], equi[K:], Rs[1])
 

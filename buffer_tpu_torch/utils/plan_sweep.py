@@ -1,5 +1,5 @@
-"""Kernel time of the banded kNN and of ball sampling over launch plans, on
-the card.
+"""Kernel time of the banded kNN, ball sampling, the banded 1-NN and the
+exact 1-NN over launch plans, on the card.
 
     python -m buffer_tpu_torch.utils.plan_sweep [--iters 20] [--recorded]
 
@@ -10,22 +10,33 @@ plan and with other ring depths; for ball sampling at the inference shape
 (both clouds' 1500 keypoints, 512-point patches from 65536 and 131072 raw
 points) and the training shape (512 keypoints) it runs ``csrc/ball.cu``
 with :func:`~buffer_tpu_torch.kernels.geom_cuda.ball_plan`'s plan and the
-alternatives (queries a thread, segments a block, ring chunks).  The
-alternatives go straight to the C launch (``knn_cuda.bknn_launcher``,
-``geom_cuda.ball_launcher``), never through the wrappers.  Each plan is
+alternatives (queries a thread, segments a block, ring chunks); for the
+banded 1-NN at its three call shapes (3DMatch's and KITTI's l0 -> l1
+upsample, the training sampler's 30720 x 30720 at B = 1) it runs
+``csrc/bnn1.cu`` with :func:`~buffer_tpu_torch.kernels.knn_cuda.bnn1_plan`'s
+plan and other queries a thread; for the
+exact 1-NN at its calls (both presets' l1 -> l2 upsample, and 3DMatch's
+l0 -> l1 at ``knn_band = 0``) it runs ``csrc/nearest.cu`` with
+:func:`~buffer_tpu_torch.kernels.geom_cuda.nearest_plan`'s plan and other
+queries a thread and cluster sizes.  The alternatives go straight to the
+C launch (``knn_cuda.bknn_launcher``, ``geom_cuda.ball_launcher``,
+``knn_cuda.bnn1_launcher``, ``geom_cuda.nearest_launcher``), never through
+the wrappers.  Each plan is
 first checked bit-equal to the plain version, then timed (CUDA events over
 ``--iters`` launches after a warm-up).  One JSON line a plan: the shape,
 the plan, whether it is the default, ms.  It is the evidence behind the
-two plans' rules; the main path never calls it.
+plans' rules; the main path never calls it.
 
 With ``--recorded`` it instead runs ``register_pair`` on the first synthetic
-pair of each preset (the pairs of ``chip_smoke.py``), records every call of
-the banded kNN and prints, for each, the wrapper's time (CUDA events) and
-the device time of every kernel the call launches (``torch.profiler``).
-That mode uses no plan, so this file also runs it in an earlier tree of
-the package (copied into that tree's ``buffer_tpu_torch/utils/`` and run
-there as a module), which is how the banded kNN's per-call times before
-its redesign were measured.
+pair of each preset (the pairs of ``chip_smoke.py``) and the training
+sampler's ``nearest_common_morton`` on that pair's source (moved by a
+rigid motion) and target, records every call of the banded kNN, the banded
+1-NN and the exact 1-NN and prints, for each, the wrapper's time (CUDA
+events) and the device time of every kernel the call launches
+(``torch.profiler``).  That mode uses no plan, so this file also runs it in
+an earlier tree of the package (copied into that tree's
+``buffer_tpu_torch/utils/`` and run there as a module), which is how the
+kernels' per-call times before their redesigns were measured.
 """
 
 from __future__ import annotations
@@ -59,6 +70,18 @@ BALL_CALLS = [("3DMatch planes", 2, 1500, 65536, 512, 0.3),
 # (queries a thread, segments a block, ring chunks)
 BALL_ALTERNATIVES = [(8, 32, 2), (8, 32, 4), (4, 32, 3), (8, 64, 3),
                      (4, 64, 3), (8, 128, 3), (8, 256, 3)]
+# (name, B, Q, S, extent) of the banded 1-NN calls
+BNN1_CALLS = [("3DMatch l0 -> l1", 2, 30720, 10240, 1.5),
+              ("KITTI l0 -> l1", 2, 40960, 20480, 40.0),
+              ("3DMatch sampler", 1, 30720, 30720, 1.5)]
+# queries a thread
+BNN1_ALTERNATIVES = [4, 8, 16]
+# (name, B, Q, S, extent) of the exact 1-NN calls
+NEAREST_CALLS = [("3DMatch l1 -> l2", 2, 10240, 3072, 1.5),
+                 ("KITTI l1 -> l2", 2, 20480, 6144, 40.0),
+                 ("3DMatch knn_band=0 l0 -> l1", 2, 30720, 10240, 1.5)]
+# (queries a thread, CTAs a cluster)
+NEAREST_ALTERNATIVES = [(q, c) for q in (1, 2, 4, 8) for c in (1, 2, 4, 8)]
 
 
 def bknn_variant(ring: int):
@@ -170,8 +193,51 @@ def sweep_ball(dev, iters: int) -> None:
                               "ms": cuda_ms(launch, iters)}))
 
 
+def sweep_bnn1(dev, iters: int) -> None:
+    rs = np.random.RandomState(2)
+    for name, B, Q, S, extent in BNN1_CALLS:
+        sup, sv = surface(rs, B, S, extent, dev)
+        qry, qv = surface(rs, B, Q, extent, dev)
+        args = (qry, sup, sv, qv)
+        want = knn_cuda.banded_nn1_plain(*args)
+        default = knn_cuda.bnn1_plan(B, Q, S)
+        for plan in dict.fromkeys([default] + BNN1_ALTERNATIVES):
+            got = poisoned(want)
+            launch = knn_cuda.bnn1_launcher(*args, got, plan)
+            launch()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"bnn1 {name} {plan}: kernel and plain differ")
+            print(json.dumps({"kernel": "bnn1", "call": name, "B": B, "Q": Q,
+                              "S": S, "plan": plan, "default": plan == default,
+                              "ms": cuda_ms(launch, iters)}))
+
+
+def sweep_nearest(dev, iters: int) -> None:
+    rs = np.random.RandomState(3)
+    for name, B, Q, S, extent in NEAREST_CALLS:
+        sup, sv = surface(rs, B, S, extent, dev)
+        qry, _ = surface(rs, B, Q, extent, dev)
+        args = (qry, sup, sv)
+        want = geom_cuda.nearest_plain(*args)
+        default = geom_cuda.nearest_plan(B, Q, S)
+        for plan in dict.fromkeys([default] + NEAREST_ALTERNATIVES):
+            if -(-S // plan[1]) > geom_cuda.NEAREST_MAX_SLICE:
+                continue
+            got = poisoned(want)
+            launch = geom_cuda.nearest_launcher(*args, got, plan)
+            launch()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"nearest {name} {plan}: kernel and plain "
+                                   "differ")
+            print(json.dumps({"kernel": "nearest", "call": name, "B": B,
+                              "Q": Q, "S": S, "plan": plan,
+                              "default": plan == default,
+                              "ms": cuda_ms(launch, iters)}))
+
+
 def recorded_calls(dev, iters: int) -> None:
-    """Each banded-kNN call of the first pair of each preset, timed."""
+    """Each neighbour-kernel call of the first pair of each preset and of
+    the training sampler on it, timed."""
     from torch.profiler import ProfilerActivity, profile
 
     from buffer_tpu_torch.config import kitti_cfg, threedmatch_cfg
@@ -180,19 +246,42 @@ def recorded_calls(dev, iters: int) -> None:
     from buffer_tpu_torch.ops import neighbors
     from buffer_tpu_torch.pipeline import registration
     gen = torch.Generator(device=dev).manual_seed(0)
+    names = {"banded_knn_cuda": ("bknn", "bknn_kernel"),
+             "banded_nn1_cuda": ("bnn1", "bnn1_kernel"),
+             "nearest_cuda": ("nearest", "nearest_kernel")}
     for preset, cfg, make, seed in (
             ("3DMatch", threedmatch_cfg(), surface_pair, 0),
             ("KITTI", kitti_cfg(), lidar_pair, 13)):
         inputs = make(cfg, seed, dev)[0]
         draws = registration.make_draws(cfg, gen, dev)
-        calls, fn = [], neighbors.banded_knn_cuda
-        neighbors.banded_knn_cuda = lambda *a: calls.append(a) or fn(*a)
+        calls, saved = [], {n: getattr(neighbors, n) for n in names}
+
+        def recorder(name):
+            return lambda *a: calls.append((name, "pair", a)) or saved[name](*a)
+
+        for n in names:
+            setattr(neighbors, n, recorder(n))
         try:
             registration.register_pair(BufferModel(cfg, seed=0).to(dev), inputs,
                                        draws, device=dev)
+            if preset == "3DMatch":
+                # the positive-pair sampler of a training step: the source
+                # moved by a rigid motion against the target, B = 1
+                c, s_ = np.cos(0.3), np.sin(0.3)
+                R = torch.tensor([[c, -s_, 0], [s_, c, 0], [0, 0, 1]],
+                                 dtype=torch.float32, device=dev)
+                src = inputs.sds[0] @ R.T + 0.05
+                n0 = len(calls)
+                neighbors.nearest_common_morton(
+                    src, inputs.sds_mask[0], inputs.sds[1], inputs.sds_mask[1],
+                    cfg.static.knn_band)
+                calls[n0:] = [(n, "sampler", a) for n, _, a in calls[n0:]]
         finally:
-            neighbors.banded_knn_cuda = fn
-        for a in calls:
+            for n, fn in saved.items():
+                setattr(neighbors, n, fn)
+        for name, where, a in calls:
+            fn = saved[name]
+            kernel, search = names[name]
             ms = cuda_ms(lambda: fn(*a), iters)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
@@ -202,11 +291,11 @@ def recorded_calls(dev, iters: int) -> None:
                          for e in prof.key_averages()
                          if e.self_device_time_total > 0}
             print(json.dumps({
-                "kernel": "bknn", "preset": preset, "Q": a[0].shape[1],
-                "S": a[1].shape[1], "k": a[4], "radius": a[5], "ms": ms,
-                "device_us": sum(device_us.values()),
+                "kernel": kernel, "preset": preset, "call": where,
+                "B": a[0].shape[0], "Q": a[0].shape[1], "S": a[1].shape[1],
+                "ms": ms, "device_us": sum(device_us.values()),
                 "search_kernel_us": sum(v for k, v in device_us.items()
-                                        if "bknn_kernel" in k),
+                                        if search in k),
                 "device_ops_us": device_us}))
 
 
@@ -224,12 +313,12 @@ def main() -> int:
         recorded_calls(dev, args.iters)
         return 0
     logs = cuda.build_all()
-    for name in ("bknn", "ball_sample", "ball_sample_points"):
+    for name in ("bknn", "ball_sample", "ball_sample_points", "bnn1", "nearest"):
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in logs[name].splitlines()
             if "registers" in ln or "spill" in ln]}))
-    sweep_bknn(dev, args.iters)
-    sweep_ball(dev, args.iters)
+    for sweep in (sweep_bknn, sweep_ball, sweep_bnn1, sweep_nearest):
+        sweep(dev, args.iters)
     return 0
 
 

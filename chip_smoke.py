@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives four paths, each with every kernel launch counter set to 0 just
+2. Drives six paths, each with every kernel launch counter set to 0 just
    before it and read just after; every kernel of a path must have run on
    every pair of it:
    * the main path: ``register_pair`` on the shipped 3DMatch preset
@@ -18,6 +18,10 @@
      131072 raw points) on 2 synthetic LiDAR pairs, the first a warm-up;
    * the 3DMatch preset with ``knn_band = 0`` (exact unbanded search) on
      1 pair;
+   * the 3DMatch preset with ``fused_desc = False`` (the reference's
+     sampled descriptor front: stacked patches through
+     ``ball_sample_points``, the sampled SPT, the network on the sampled
+     patches) on the main path's first 2 pairs, the first a warm-up;
    * the single-cloud FPS entry point ``ops.sampling.farthest_point_sample``
      on the main path's first source cloud;
    * "3DMatch train": stage-sequential training at the same full width
@@ -34,8 +38,9 @@
    (``torch.cuda.max_memory_allocated``) of each training stage.
 3. Runs the first pair of each preset once more with the plain PyTorch
    versions of the kernels on the card (substituted at the kernels' call
-   sites): keypoint indices and the mutual-match count must be equal, the
-   descriptors within 1e-3 and the pose within 1e-4.  One Desc and one Ref
+   sites), and the ``fused_desc = False`` pair too: keypoint indices and the
+   mutual-match count must be equal, the descriptors within 1e-3 and the
+   pose within 1e-4.  One Desc and one Ref
    training step from the same state and draws, with the kernels and with
    the plain versions, under PyTorch's deterministic algorithms: the loss
    within 1e-5 relative, the updated parameters within 1e-6.
@@ -45,18 +50,22 @@
    SPT front; exact for the training front's ball sampling on every call of
    a Desc step) -- and the banded kernels and the batched FPS on the KITTI
    pair too (both timed there as well, the banded calls kernel only; FPS
-   per step of its chain too); scores the
+   per step of its chain too), the exact 1-NN on the KITTI pair's call and
+   on both calls of the ``knn_band = 0`` pair, ball sampling of stacked
+   points on the ``fused_desc = False`` pair's call, and the banded 1-NN on
+   every call of a training step (the pyramid's and the positive-pair
+   sampler's), each of these checked and timed; scores the
    banded search against the exact dense search (recall of the true
    in-radius k-NN, > 0.97, and 1-NN index agreement, > 0.99, gated on
    3DMatch, printed for KITTI); times kernel, plain version, the exact
    search the banded kernels stand in for and, where one PyTorch call
    computes the same function, that call (CUDA events after warm-up), and
-   ball sampling also around its C launch alone (pack and select, without
-   the wrapper's preparation); computes each kernel's bound from this run's
-   inputs, and, on a line of derived figures of its own, the issue floor of
-   the banded kNN and of ball sampling (this run's tests x issue slots a
-   test, counted by hand in the inner loops, over every fp32 lane at the
-   card's maximum SM clock).
+   ball sampling and both 1-NN kernels also around their C launch alone
+   (without the wrapper's preparation); computes each kernel's bound from
+   this run's inputs, and, on a line of derived figures of its own, the
+   issue floor of the banded kNN, ball sampling and both 1-NN kernels (this
+   run's tests x issue slots a test, counted by hand in the inner loops,
+   over every fp32 lane at the card's maximum SM clock).
 
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds every kernel's
@@ -67,6 +76,7 @@ device the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -82,10 +92,14 @@ SMS, LANES = 132, 128        # H100 SXM: SMs, fp32 lanes an SM
 # (cuobjdump -sass, sm_90a) and not checked by this script: bknn 3 FADD
 # (differences), 3 FMUL + 2 FADD (d2), the penalty FADD, the floor FMNMX, a
 # LOP3 (row) and 3 FMNMX (winner, runner-up); ball sampling on a miss 3 FMUL
-# + 3 FADD, 2 FSETP, a branch and its BSSY/BSYNC.  Recount them when an
-# inner loop changes.
+# + 3 FADD, 2 FSETP, a branch and its BSSY/BSYNC; the banded 1-NN as bknn
+# with one FMNMX (the column min) in place of three; the exact 1-NN 3 FADD,
+# 3 FMUL + 2 FADD, an FSETP and two selects (FSEL, SEL).  Recount them when
+# an inner loop changes.
 BKNN_SLOTS = 14
 BALL_SLOTS = 11
+BNN1_SLOTS = 12
+NEAREST_SLOTS = 11
 N_PAIRS = 3
 N_KITTI_PAIRS = 2
 KITTI_SEED = 13
@@ -102,6 +116,8 @@ PER_PAIR = {
               "spt_pooled": 1},
     "3DMatch knn_band=0": {"nearest": 2, "fps": 1, "ball_sample": 1,
                            "spt_pooled": 1},
+    "3DMatch fused_desc=False": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
+                                 "ball_sample_points": 1},
     "farthest_point_sample": {"fps_single": 1},
 }
 TRAIN_PAIRS = 2
@@ -269,12 +285,14 @@ def plain_path_check(path: str, model, dev, inputs, draws, kernel_run) -> dict:
     return out
 
 
-def recorded_run(model, dev, inputs, draws):
-    """register_pair of one pair with the arguments of every neighbour
-    kernel call recorded: (result, intermediates, {wrapper: [args]})."""
+def recorded_run(model, dev, inputs, draws,
+                 names=("banded_knn_cuda", "banded_nn1_cuda", "nearest_cuda")):
+    """register_pair of one pair with the arguments of every call of the
+    named kernel wrappers (as ``ops.neighbors`` calls them) recorded:
+    (result, intermediates, {wrapper: [args]})."""
     from buffer_tpu_torch.ops import neighbors
     from buffer_tpu_torch.pipeline import registration
-    calls = {"banded_knn_cuda": [], "banded_nn1_cuda": [], "nearest_cuda": []}
+    calls = {name: [] for name in names}
     with contextlib.ExitStack() as stack:
         for name, store in calls.items():
             stack.enter_context(capture(neighbors, name, store))
@@ -315,10 +333,12 @@ def banded_entries(calls, cfg, time_plain: bool = True):
     def add(kernel, row):
         rows.append(row)
         s = sums.setdefault(kernel, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
-                                     "exact_ms": 0.0, "flops": 0.0,
-                                     "bytes": 0.0, "tests": 0, "score": []})
+                                     "exact_ms": 0.0, "launch_ms": 0.0,
+                                     "flops": 0.0, "bytes": 0.0, "tests": 0,
+                                     "score": []})
         s["calls"] += 1
-        for key in ("ms", "plain_ms", "exact_ms", "flops", "bytes", "tests"):
+        for key in ("ms", "plain_ms", "exact_ms", "launch_ms", "flops", "bytes",
+                    "tests"):
             s[key] += row.get(key) or 0.0
         s["score"].append(row["score"])
 
@@ -356,9 +376,13 @@ def banded_entries(calls, cfg, time_plain: bool = True):
         B, Q, S = q.shape[0], q.shape[1], s.shape[1]
         _, LW = knn_cuda.window_rows(S, knn_cuda.NN1_WIN_ROWS)
         row = {"kernel": "bnn1", "Q": Q, "S": S, "window_rows": LW,
-               "score": score, "flops": B * Q * LW * knn_cuda.NSEG * 8,
-               "bytes": B * (Q * 13 + S * 13 + Q * 8)}
+               "score": score, "tests": B * Q * LW * knn_cuda.NSEG,
+               "flops": B * Q * LW * knn_cuda.NSEG * 8,
+               "bytes": B * (Q * 13 + S * 13 + Q * 8),
+               "plan": knn_cuda.bnn1_plan(B, Q, S)}
         row["ms"] = cuda_ms(lambda: knn_cuda.banded_nn1_cuda(q, s, sv, qv), 20)
+        row["launch_ms"] = cuda_ms(knn_cuda.bnn1_launcher(
+            q, s, sv, qv, [torch.empty_like(x) for x in got]), 20)
         if time_plain:
             row["plain_ms"] = cuda_ms(
                 lambda: knn_cuda.banded_nn1_plain(q, s, sv, qv), 2)
@@ -385,7 +409,7 @@ def state_of(model, stage: str) -> dict:
 
 def counted(fn, name: str, want: dict):
     """fn() with the launches it makes checked against ``want``; returns
-    (result, host ms around the synchronized call)."""
+    (result, host ms around the synchronized call, the launches it made)."""
     import torch
     from buffer_tpu_torch.kernels import cuda
     before = cuda.launch_counts()
@@ -395,8 +419,9 @@ def counted(fn, name: str, want: dict):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     after = cuda.launch_counts()
-    check_launches(name, {k: after[k] - before[k] for k in after}, want)
-    return out, ms
+    rose = {k: after[k] - before[k] for k in after}
+    check_launches(name, rose, want)
+    return out, ms, rose
 
 
 def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
@@ -423,7 +448,7 @@ def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
         ms, losses = [], []
         for i in range(TRAIN_STEPS):
             draws = make_train_draws(cfg, gen, dev)
-            (loss, stats), t = counted(
+            (loss, stats), t, step_launches = counted(
                 lambda: trainer.step(batches[i % len(batches)], draws),
                 f"train {stage}", TRAIN_STEP[stage])
             if not all(bool(torch.isfinite(v)) for v in stats.values()):
@@ -432,8 +457,8 @@ def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
                 raise RuntimeError(f"train {stage}: a step was skipped")
             ms.append(t)
             losses.append(float(loss))
-        res, eval_ms = counted(lambda: trainer.evaluate(batches[:1], gen),
-                               f"eval {stage}", TRAIN_STEP[stage])
+        res, eval_ms, _ = counted(lambda: trainer.evaluate(batches[:1], gen),
+                                  f"eval {stage}", TRAIN_STEP[stage])
         if not all(math.isfinite(v) for v in res.values()):
             raise RuntimeError(f"eval {stage}: non-finite stats {res}")
         trainer.end_epoch(0, res)
@@ -460,7 +485,9 @@ def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
                 "ms_per_step": sum(warm) / len(warm), "step_ms": ms,
                 "eval_ms": eval_ms, "peak_mem_bytes": peak, "losses": losses,
                 "eval": res, "metric": BEST_METRIC[stage],
-                "params_moved": len(moved)}
+                "params_moved": len(moved),
+                "launches_last_step": {k: v for k, v in step_launches.items()
+                                       if v}}
         print(json.dumps(line))
         stages.append(line)
     return {"model": model, "stages": stages, "launches": cuda.launch_counts()}
@@ -577,9 +604,30 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     band0_line = path_line("3DMatch knn_band=0", ucfg, ucounts, *rest, uprep_s,
                            upairs[0])
 
+    # ---- the sampled descriptor front (fused_desc = False) --------------
+    scfg = cfg.replace(static=dataclasses.replace(cfg.static, fused_desc=False))
+    smodel = BufferModel(scfg, seed=0).to(dev)
+    scounts, *rest = drive("3DMatch fused_desc=False", smodel, dev, pairs[:2],
+                           draws[:2])
+    sampled_line = path_line("3DMatch fused_desc=False", scfg, scounts, *rest,
+                             prep_s, pairs[0])
+
     # ---- the first pair of each preset with every call recorded ---------
     res_k, inter_k, calls = recorded_run(model, dev, pairs[0], draws[0])
     kres_k, kinter_k, kcalls = recorded_run(kmodel, dev, kpairs[0], kdraws[0])
+    # the calls that the knn_band = 0 and fused_desc = False paths make at
+    # shapes of their own: the exact 1-NN's l0 -> l1 and l1 -> l2, and the
+    # sampled front's ball sampling of both clouds' keypoints
+    _, _, ucalls = recorded_run(umodel, dev, upairs[0], udraws[0],
+                                ("nearest_cuda",))
+    sres_k, sinter_k, scalls = recorded_run(smodel, dev, pairs[0], draws[0],
+                                            ("ball_sample_points_cuda",))
+    for path, got, want in (
+            ("3DMatch knn_band=0", ucalls["nearest_cuda"], "nearest"),
+            ("3DMatch fused_desc=False", scalls["ball_sample_points_cuda"],
+             "ball_sample_points")):
+        if len(got) != PER_PAIR[path][want]:
+            raise RuntimeError(f"{path}: {len(got)} recorded {want} calls")
 
     # ---- the single-cloud FPS entry point -------------------------------
     K = cfg.point.num_keypts
@@ -608,13 +656,32 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     checks = [plain_path_check("3DMatch", model, dev, pairs[0], draws[0],
                                (res_k, inter_k)),
               plain_path_check("KITTI", kmodel, dev, kpairs[0], kdraws[0],
-                               (kres_k, kinter_k))]
+                               (kres_k, kinter_k)),
+              plain_path_check("3DMatch fused_desc=False", smodel, dev,
+                               pairs[0], draws[0], (sres_k, sinter_k))]
     tdraws = make_train_draws(cfg, tgen, dev)
     train_checks = [plain_train_check(st, tmodel, cfg, batches[0], tdraws, dev,
                                       save_dir) for st in ("Desc", "Ref")]
 
+    # ---- the neighbour and ball calls of one (eval) training step -------
+    from buffer_tpu_torch.ops import neighbors
+    ball_calls, tbnn1_calls = [], []
+    with capture(neighbors, "ball_sample_points_cuda", ball_calls), \
+            capture(neighbors, "banded_nn1_cuda", tbnn1_calls):
+        eval_step(tmodel, "Desc", batches[0], tdraws, 1.05, dev)
+    if len(ball_calls) != 1 or len(tbnn1_calls) != 2:
+        raise RuntimeError(f"training step: {len(ball_calls)} ball and "
+                           f"{len(tbnn1_calls)} banded 1-NN calls")
+
     # ---- each kernel against its plain version at the main-path inputs --
     kernels, reference = [], {}
+    clock = sm_clock_hz()
+    floors = {}
+
+    def floor(name, slots, **tests):
+        floors[name] = {"slots_a_test": slots, **tests, **{
+            "issue_floor_ms" + key[5:]: issue_floor_ms(n, slots, clock)
+            for key, n in tests.items()}}
 
     def entry(kern, launches, err, ms, plain_ms, flops, nbytes, lib_ms,
               **extra):
@@ -626,21 +693,53 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         print(json.dumps(e))
         kernels.append(e)
 
-    # 1. exact 1-NN: every call of the pair (the l1 -> l2 upsample)
-    nn_args = calls["nearest_cuda"]
-    err = 0.0
-    for a in nn_args:
-        (dk, ik), (dp, ip) = geom_cuda.nearest_cuda(*a), geom_cuda.nearest_plain(*a)
-        if not torch.equal(ik, ip):
-            raise RuntimeError("nearest: kernel and plain indices differ")
-        err = max(err, float((dk - dp).abs().max()))
+    # 1. exact 1-NN: every call of the pair (the l1 -> l2 upsample), and the
+    # KITTI pair's and the knn_band = 0 pair's (checked and timed); around
+    # the wrapper and around the C launch alone
+    def nn_check(args):
+        err = 0.0
+        for a in args:
+            (dk, ik), (dp, ip) = (geom_cuda.nearest_cuda(*a),
+                                  geom_cuda.nearest_plain(*a))
+            if not torch.equal(ik, ip) or not torch.equal(dk, dp):
+                raise RuntimeError("nearest: kernel and plain differ at "
+                                   f"{tuple(a[0].shape)} x {tuple(a[1].shape)}")
+            err = max(err, float((dk - dp).abs().max()))
+        return err
+
+    def nn_launch_ms(a):
+        outs = [torch.empty(a[0].shape[:2], device=dev),
+                torch.empty(a[0].shape[:2], dtype=torch.int32, device=dev)]
+        return cuda_ms(geom_cuda.nearest_launcher(*a, outs), 20)
+
+    nn_tests = lambda args: sum(a[0].shape[0] * a[0].shape[1] * a[1].shape[1]
+                                for a in args)
+    nn_args, knn_args = calls["nearest_cuda"], kcalls["nearest_cuda"]
+    unn_args = ucalls["nearest_cuda"]
+    err = max(nn_check(nn_args), nn_check(knn_args), nn_check(unn_args))
+    nn_shapes = lambda args: [[*a[0].shape[:2], a[1].shape[1]] for a in args]
+    nn_plans = lambda args: [geom_cuda.nearest_plan(
+        a[0].shape[0], a[0].shape[1], a[1].shape[1]) for a in args]
     entry(geom_cuda.NEAREST, counts["nearest"], err,
           sum(cuda_ms(lambda a=a: geom_cuda.nearest_cuda(*a), 20) for a in nn_args),
           sum(cuda_ms(lambda a=a: geom_cuda.nearest_plain(*a), 3) for a in nn_args),
-          sum(a[0].shape[0] * a[0].shape[1] * a[1].shape[1] * 8 for a in nn_args),
+          8 * nn_tests(nn_args),
           sum(a[0].numel() * 4 + a[1].numel() * 4 + a[2].numel()
               + a[0].shape[0] * a[0].shape[1] * 8 for a in nn_args),
-          sum(cuda_ms(lambda a=a: cdist_nn(*a), 5) for a in nn_args))
+          sum(cuda_ms(lambda a=a: cdist_nn(*a), 5) for a in nn_args),
+          launch_ms=sum(nn_launch_ms(a) for a in nn_args),
+          plan=nn_plans(nn_args),
+          ms_kitti=sum(cuda_ms(lambda a=a: geom_cuda.nearest_cuda(*a), 20)
+                       for a in knn_args),
+          launch_ms_kitti=sum(nn_launch_ms(a) for a in knn_args),
+          calls_kitti=nn_shapes(knn_args), plan_kitti=nn_plans(knn_args),
+          ms_band0=[cuda_ms(lambda a=a: geom_cuda.nearest_cuda(*a), 20)
+                    for a in unn_args],
+          launch_ms_band0=[nn_launch_ms(a) for a in unn_args],
+          calls_band0=nn_shapes(unn_args), plan_band0=nn_plans(unn_args),
+          ptxas=ptxas["nearest"])
+    floor("nearest", NEAREST_SLOTS, tests=nn_tests(nn_args),
+          tests_kitti=nn_tests(knn_args), tests_band0=nn_tests(unn_args))
 
     # 2. batched FPS on the detector-eligible points, at the 3DMatch pair's
     # shape and (checked and timed, not in the bound) the KITTI pair's
@@ -677,14 +776,6 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     # 3. ball sampling of both clouds' patches: timed around the wrapper
     # and around the C launch alone (pack and select, without the wrapper's
     # preparation)
-    clock = sm_clock_hz()
-    floors = {}
-
-    def floor(name, slots, **tests):
-        floors[name] = {"slots_a_test": slots, **tests, **{
-            "issue_floor_ms" + key[5:]: issue_floor_ms(n, slots, clock)
-            for key, n in tests.items()}}
-
     def ball_launch_ms(kern, args, outs):
         return cuda_ms(geom_cuda.ball_launcher(kern, *args, outs), 10)
 
@@ -752,14 +843,36 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     if (min(sums["bknn"]["score"]) <= RECALL_KNN
             or min(sums["bnn1"]["score"]) <= AGREE_NN1):
         raise RuntimeError(f"banded search below its bars on 3DMatch: {quality}")
+    # the banded 1-NN's calls of a training step: the pyramid's l0 -> l1
+    # and the positive-pair sampler's (B = 1), checked and timed
+    train_tests, train_ms, train_launch_ms = 0, 0.0, 0.0
+    for a in tbnn1_calls:
+        got = knn_cuda.banded_nn1_cuda(*a)
+        if not all(torch.equal(x, y) for x, y in
+                   zip(got, knn_cuda.banded_nn1_plain(*a))):
+            raise RuntimeError("bnn1 (training step): kernel and plain differ")
+        train_tests += a[0].shape[0] * a[0].shape[1] * 16 * knn_cuda.NSEG
+        train_ms += cuda_ms(lambda a=a: knn_cuda.banded_nn1_cuda(*a), 20)
+        train_launch_ms += cuda_ms(knn_cuda.bnn1_launcher(
+            *a, [torch.empty_like(x) for x in got]), 20)
     for kern, name in ((knn_cuda.BKNN, "bknn"), (knn_cuda.BNN1, "bnn1")):
         s = sums[name]
+        extra = {} if name == "bknn" else {
+            "launch_ms": s["launch_ms"], "launch_ms_kitti": ksums[name]["launch_ms"],
+            "plan": [r["plan"] for r in rows if r["kernel"] == "bnn1"],
+            "launches_train_step": train["stages"][0][
+                "launches_last_step"].get("bnn1", 0),
+            "ms_train": train_ms, "launch_ms_train": train_launch_ms,
+            "calls_train": [[*a[0].shape[:2], a[1].shape[1]] for a in tbnn1_calls]}
         entry(kern, counts[name], 0.0, s["ms"], s["plain_ms"], s["flops"],
               s["bytes"], None, ms_kitti=ksums[name]["ms"],
-              calls_kitti=ksums[name]["calls"], ptxas=ptxas[name])
+              calls_kitti=ksums[name]["calls"], ptxas=ptxas[name], **extra)
         if name == "bknn":
             floor("bknn", BKNN_SLOTS, tests=s["tests"],
                   tests_kitti=ksums[name]["tests"])
+        else:
+            floor("bnn1", BNN1_SLOTS, tests=s["tests"],
+                  tests_kitti=ksums[name]["tests"], tests_train=train_tests)
         reference[name] = {"exact_search_ms": s["exact_ms"], "calls": s["calls"],
                            "what": ("ops.neighbors.radius_knn with band=None"
                                     if name == "bknn" else
@@ -781,44 +894,61 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
           (K - 1) * N1 * 9, N1 * 13 + K * 4, None,
           per_step_us=1e3 * single_ms / (K - 1))
 
-    # 8. the training front's ball sampling: every call of one (eval) step
-    from buffer_tpu_torch.ops import neighbors
-    ball_calls = []
-    with capture(neighbors, "ball_sample_points_cuda", ball_calls):
-        eval_step(tmodel, "Desc", batches[0], tdraws, 1.05, dev)
-    if len(ball_calls) != 1:
-        raise RuntimeError(f"ball_sample_points: {len(ball_calls)} calls a step")
-    flops = nbytes = tests = 0
-    for a in ball_calls:
-        outk = geom_cuda.ball_sample_points_cuda(*a)
-        outp = geom_cuda.ball_sample_points_plain(*a)
-        if not all(torch.equal(x, y) for x, y in zip(outk, outp)):
-            raise RuntimeError("ball_sample_points: kernel and plain differ")
-        q, sup, k = a[0], a[1], a[5]
-        B, Q, N = q.shape[0], q.shape[1], sup.shape[1]
-        tests += B * Q * N
-        flops += B * Q * N * 7
-        nbytes += B * (N * 17 + Q * 12 + Q * k * 13)
+    # 8. the training front's ball sampling: every call of one (eval) step;
+    # and the fused_desc = False pair's call (checked and timed)
+    def points_check(args):
+        flops = nbytes = tests = 0
+        for a in args:
+            outk = geom_cuda.ball_sample_points_cuda(*a)
+            outp = geom_cuda.ball_sample_points_plain(*a)
+            if not all(torch.equal(x, y) for x, y in zip(outk, outp)):
+                raise RuntimeError("ball_sample_points: kernel and plain differ "
+                                   f"at {tuple(a[0].shape)} x {tuple(a[1].shape)}")
+            q, sup, k = a[0], a[1], a[5]
+            B, Q, N = q.shape[0], q.shape[1], sup.shape[1]
+            tests += B * Q * N
+            flops += B * Q * N * 7
+            nbytes += B * (N * 17 + Q * 12 + Q * k * 13)
+        return flops, nbytes, tests
+
+    def points_ms(args, iters):
+        return sum(cuda_ms(lambda a=a: geom_cuda.ball_sample_points_cuda(*a),
+                           iters) for a in args)
+
+    def points_launch_ms(args):
+        return sum(ball_launch_ms(
+            geom_cuda.BALL_POINTS, a,
+            [torch.empty((*a[0].shape[:2], a[5], 3), device=dev),
+             torch.empty(a[0].shape[:2] + (a[5],), dtype=torch.uint8,
+                         device=dev)]) for a in args)
+
+    points_plan = lambda args: [geom_cuda.ball_plan(
+        a[0].shape[0], a[0].shape[1], a[1].shape[1] // (a[5] // 2), a[5] // 2)
+        for a in args]
+    sball_calls = scalls["ball_sample_points_cuda"]
+    flops, nbytes, tests = points_check(ball_calls)
+    *_, tests_sampled = points_check(sball_calls)
     entry(geom_cuda.BALL_POINTS, train["launches"]["ball_sample_points"], 0.0,
-          sum(cuda_ms(lambda a=a: geom_cuda.ball_sample_points_cuda(*a), 10)
-              for a in ball_calls),
+          points_ms(ball_calls, 10),
           sum(cuda_ms(lambda a=a: geom_cuda.ball_sample_points_plain(*a), 2)
               for a in ball_calls),
           flops, nbytes, None,
-          launch_ms=sum(ball_launch_ms(
-              geom_cuda.BALL_POINTS, a,
-              [torch.empty((*a[0].shape[:2], a[5], 3), device=dev),
-               torch.empty(a[0].shape[:2] + (a[5],), dtype=torch.uint8,
-                           device=dev)]) for a in ball_calls),
+          launch_ms=points_launch_ms(ball_calls), plan=points_plan(ball_calls),
+          ms_sampled=points_ms(sball_calls, 10),
+          launch_ms_sampled=points_launch_ms(sball_calls),
+          calls_sampled=[[*a[0].shape[:2], a[1].shape[1], a[5]]
+                         for a in sball_calls],
+          plan_sampled=points_plan(sball_calls),
           ptxas=ptxas["ball_sample_points"])
-    floor("ball_sample_points", BALL_SLOTS, tests=tests)
+    floor("ball_sample_points", BALL_SLOTS, tests=tests,
+          tests_sampled=tests_sampled)
     derived = {"sm_clock_mhz": clock / 1e6, "sms": SMS, "fp32_lanes": LANES,
                "kernels": floors}
     print(json.dumps({"issue_floor": derived}))
 
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-            "paths": [main_line, kitti_line, band0_line],
+            "paths": [main_line, kitti_line, band0_line, sampled_line],
             "train": train["stages"], "train_launches": train["launches"],
             "plain_train_checks": train_checks,
             "ball_points_calls": [{"B": a[0].shape[0], "Q": a[0].shape[1],

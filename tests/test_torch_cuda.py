@@ -367,3 +367,101 @@ def test_bknn_and_ball_bad_plans_raise(card):
     with pytest.raises(RuntimeError):
         geom_cuda.ball_launcher(geom_cuda.BALL, sup[:, :10], sup, sv, prio,
                                 0.3, 64, outs, (12, 8, 32, 16, 3, 30744))()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self duplicates", "ratio 3", "ratio 1/3",
+                                  "mirror ties", "truncation ties",
+                                  "all invalid"])
+def test_bnn1_kernel_matches_plain_at_model_cases(card, case):
+    """The banded 1-NN bit-equal to its plain version on the model tests'
+    inputs (tests/test_torch_kernel_models.py: floored zero distances, ties
+    across rows and at 16-bit truncation, an all-invalid support and no
+    valid queries, ratios 3 and 1/3 with starts clipped at both ends,
+    ragged Q), through the wrapper and through the C launch at 4, 8 and 16
+    queries a thread."""
+    from test_torch_kernel_models import _bnn1_case
+    from buffer_tpu_torch.utils.plan_sweep import BNN1_ALTERNATIVES, poisoned
+    cuda.build_all()
+    args = tuple(t.to(card) for t in
+                 _bnn1_case(case, np.random.RandomState(sum(map(ord, case)))))
+    want = knn_cuda.banded_nn1_plain(*args)
+    assert _equal(knn_cuda.banded_nn1_cuda(*args), want)
+    for plan in BNN1_ALTERNATIVES:
+        got = poisoned(want)
+        knn_cuda.bnn1_launcher(*args, got, plan)()
+        assert _equal(got, want), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,S", [(2, 30720, 10240), (2, 40960, 20480),
+                                   (1, 30720, 30720)])
+def test_bnn1_kernel_matches_plain_at_preset_calls(card, B, Q, S):
+    """The banded 1-NN's calls: 3DMatch's and KITTI's l0 -> l1 upsample and
+    the training sampler (B = 1), on seeded Morton-sorted surfaces with
+    invalid points, one launch each."""
+    cuda.build_all()
+    rs = np.random.RandomState(Q + S)
+    sup, sv = _sorted_clouds(rs, B, S, S - 700, card)
+    sv[0, S // 4:S // 4 + 500] = False
+    qry, qv = _sorted_clouds(rs, B, Q, Q - 300, card)
+    before = cuda.launch_counts()["bnn1"]
+    got = knn_cuda.banded_nn1_cuda(qry, sup, sv, qv)
+    assert cuda.launch_counts()["bnn1"] == before + 1
+    assert _equal(got, knn_cuda.banded_nn1_plain(qry, sup, sv, qv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["duplicates", "mirror ties", "all invalid",
+                                  "tiny"])
+def test_nearest_kernel_matches_plain_at_model_cases(card, case):
+    """The exact 1-NN bit-equal to its plain version on the model tests'
+    inputs (duplicates and mirror ties to the lowest index, an all-invalid
+    support, ragged Q and S), through the wrapper and through the C launch
+    at every plan of the sweep."""
+    from test_torch_kernel_models import _nearest_case
+    from buffer_tpu_torch.utils.plan_sweep import NEAREST_ALTERNATIVES, poisoned
+    cuda.build_all()
+    args = tuple(t.to(card) for t in
+                 _nearest_case(case, np.random.RandomState(sum(map(ord, case)))))
+    want = geom_cuda.nearest_plain(*args)
+    assert _equal(geom_cuda.nearest_cuda(*args), want)
+    for plan in NEAREST_ALTERNATIVES:
+        got = poisoned(want)
+        geom_cuda.nearest_launcher(*args, got, plan)()
+        assert _equal(got, want), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,S", [(2, 10240, 3072), (2, 20480, 6144),
+                                   (2, 30720, 10240), (1, 30720, 30720)])
+def test_nearest_kernel_matches_plain_at_preset_calls(card, B, Q, S):
+    """The exact 1-NN's calls: both presets' l1 -> l2 upsample, and at
+    knn_band = 0 the l0 -> l1 upsample and the training sampler (B = 1),
+    with invalid support points, one launch each."""
+    cuda.build_all()
+    rs = np.random.RandomState(Q + S)
+    sup, sv = _sorted_clouds(rs, B, S, S - 200, card)
+    sv[0, S // 3:S // 3 + 100] = False
+    qry, _ = _sorted_clouds(rs, B, Q, Q, card)
+    before = cuda.launch_counts()["nearest"]
+    got = geom_cuda.nearest_cuda(qry, sup, sv)
+    assert cuda.launch_counts()["nearest"] == before + 1
+    assert _equal(got, geom_cuda.nearest_plain(qry, sup, sv))
+
+
+@pytest.mark.cuda
+def test_bnn1_and_nearest_bad_plans_raise(card):
+    """A plan the launchers do not take raises (no fallback): 2 or 32
+    queries a thread for the banded 1-NN, 3 queries a thread or a cluster
+    of 16 for the exact one."""
+    cuda.build_all()
+    sup, sv = _sorted_clouds(np.random.RandomState(0), 1, 4096, 4000, card)
+    outs = [torch.empty((1, 4096), device=card),
+            torch.empty((1, 4096), dtype=torch.int32, device=card)]
+    for plan in (2, 32):
+        with pytest.raises(RuntimeError):
+            knn_cuda.bnn1_launcher(sup, sup, sv, sv, outs, plan)()
+    for plan in ((3, 2), (4, 16)):
+        with pytest.raises(RuntimeError):
+            geom_cuda.nearest_launcher(sup, sup, sv, outs, plan)()

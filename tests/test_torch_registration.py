@@ -12,8 +12,9 @@ as ``patch_embedder.py:276-294`` does and runs ``spt_pooled_tpu`` in Pallas
 interpret mode.  Likewise the JAX pyramid takes the TPU path's neighbour
 kernels (the banded Pallas kernels in interpret mode, inside its own
 ``vmap``) where the CPU path would take the XLA fallbacks
-``radius_knn_banded``/``nearest_banded``.  Nothing in the JAX package
-changes."""
+``radius_knn_banded``/``nearest_banded``, and with ``fused_desc`` off its
+``extract_patches`` takes ``ball_sample_points_tpu`` where the CPU path
+would take ``ball_sample``.  Nothing in the JAX package changes."""
 
 import dataclasses
 import functools
@@ -114,12 +115,23 @@ def _tpu_dispatch(monkeypatch):
     monkeypatch.setattr(jpyr, "nearest", tpu_nearest)
 
 
+def _tpu_extract_patches(key, pts, pts_valid, kpts, des_r, patch_sample):
+    """The TPU branch of ``patch_embedder.py:56-68`` (on the CPU JAX would
+    take ``ball_sample``, a different function)."""
+    gathered, valid = gp.ball_sample_points_tpu.__wrapped__(
+        key, kpts, pts, pts_valid, float(des_r), patch_sample)
+    patches = jnp.where(valid[..., None], gathered, kpts[:, None, :])
+    return patches.at[:, -1, :].set(kpts)
+
+
 def _run_both(monkeypatch, jcfg, tcfg, raw, tgt):
     """register_pair of both packages on one pair: same inputs, weights and
     draws; returns ((res, inter) of the port, (res, inter) of JAX)."""
     monkeypatch.setattr(gp.pl, "pallas_call",
                         functools.partial(pl.pallas_call, interpret=True))
     monkeypatch.setattr(jpe, "fused_point_features", _fused_kernel_semantics)
+    if not jcfg.static.fused_desc:
+        monkeypatch.setattr(jpe, "extract_patches", _tpu_extract_patches)
     _tpu_dispatch(monkeypatch)
     j_inputs = jpre.prepare_pair(jcfg, raw.copy(), tgt.copy(),
                                  rs=np.random.RandomState(3),
@@ -164,7 +176,20 @@ def _assert_tables_equal(pt, pj):
 
 
 def test_register_pair_matches_jax(monkeypatch):
-    jcfg, tcfg = jconfig.tiny_cfg(), tconfig.tiny_cfg()
+    _matches_jax(monkeypatch, jconfig.tiny_cfg(), tconfig.tiny_cfg())
+
+
+def test_register_pair_sampled_front_matches_jax(monkeypatch):
+    """``fused_desc = False``: the reference's sampled descriptor front
+    (stacked patches through ``ball_sample_points``, ``delta @ R``, the
+    sampled SPT, the network on the sampled patches), with the tolerances
+    of the fused front."""
+    off = lambda c: c.replace(static=dataclasses.replace(c.static,
+                                                         fused_desc=False))
+    _matches_jax(monkeypatch, off(jconfig.tiny_cfg()), off(tconfig.tiny_cfg()))
+
+
+def _matches_jax(monkeypatch, jcfg, tcfg):
     # a small shift keeps matched keypoints close under random weights, so
     # RANSAC and IRLS find inliers and the pose comparison is not trivial
     raw = _surface(900, 0)
