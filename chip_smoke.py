@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives six paths, each with every kernel launch counter set to 0 just
+2. Drives seven paths, each with every kernel launch counter set to 0 just
    before it and read just after; every kernel of a path must have run on
    every pair of it:
    * the main path: ``register_pair`` on the shipped 3DMatch preset
@@ -33,6 +33,24 @@
      ``TRAIN_STEP``; losses finite; only the active stage's parameters
      move, the frozen stages' running statistics stay; the best and epoch
      checkpoints reload equal.
+   * "eval": the evaluation path through the test entry point
+     (``buffer_tpu_torch.scripts.test.main``) at the shipped presets' full
+     static plans, on dataset trees the script writes into
+     ``build/eval_smoke/``: a 3DMatch test tree (one scene, 4 fragments of
+     bench.py's wavy surface in local frames, >= 40000 points each after
+     the loader's 2 cm downsample, 3 gt pairs with ``gt.log``/``gt.info``)
+     and a KITTI sequence 08 (5 LiDAR scans of ``lidar_scene``, 9.5 m apart,
+     which the loader's pair mining turns into 2 pairs, ground truth refined
+     by ICP).  Each tree runs with seeded random weights written as a
+     reference snapshot (``--torch-weights``), and the 3DMatch tree also
+     with the checkpoints of "3DMatch train" (``--weights``).  Every pair
+     must launch the path's kernels (counts read around each pair); the
+     loaded model must equal the files; the first pair's pose must equal
+     ``register_pair`` on the same inputs and draws bit for bit;
+     ``est.log`` must read back as the inverse poses (1e-6); recall, TE,
+     RE and pairs must match the per-pair records, the registration recall
+     lie in [0, 1].  Prints a line per run with the harness's model and
+     data ms/pair.
    Prints ms/pair and a per-stage breakdown (CUDA events) of each preset,
    and ms/step (host clock around a synchronized step) and peak memory
    (``torch.cuda.max_memory_allocated``) of each training stage.
@@ -40,7 +58,9 @@
    versions of the kernels on the card (substituted at the kernels' call
    sites), and the ``fused_desc = False`` pair too: keypoint indices and the
    mutual-match count must be equal, the descriptors within 1e-3 and the
-   pose within 1e-4.  One Desc and one Ref
+   pose within 1e-4; the eval path's 3DMatch tree once more through the
+   entry point with the plain versions, held to the same gates pair by
+   pair.  One Desc and one Ref
    training step from the same state and draws, with the kernels and with
    the plain versions, under PyTorch's deterministic algorithms: the loss
    within 1e-5 relative, the updated parameters within 1e-6.
@@ -120,6 +140,16 @@ PER_PAIR = {
                                  "ball_sample_points": 1},
     "farthest_point_sample": {"fps_single": 1},
 }
+# the eval path: pairs of each tree, the 3DMatch fragments' x slabs of the
+# wavy surface, and the KITTI scans' spacing (pair mining pairs a frame
+# with the one before the first frame more than 10 m away)
+EVAL_PAIRS = {"3DMatch": 3, "KITTI": 2}
+EVAL_SLABS = [(-2.6 + 0.6 * i, -0.6 + 0.6 * i) for i in range(4)]
+EVAL_GT_PAIRS = [(0, 1), (0, 2), (1, 3)]
+EVAL_SCANS, EVAL_SCAN_GAP = 5, 9.5
+# seeded random weights whose keypoint detector passes many points at the
+# tiny plan (seeds 2, 4 and 7 leave one keypoint a cloud)
+EVAL_SNAPSHOT_SEED = 3
 TRAIN_PAIRS = 2
 TRAIN_STEPS = 3
 STAGES = ("Ref", "Desc", "Keypt", "Inlier")
@@ -530,6 +560,273 @@ def plain_train_check(stage, model, cfg, batch, draws, dev, save_dir) -> dict:
     return out
 
 
+def write_redwood(path: str, pairs, mats, n_frag: int) -> None:
+    """A Redwood ``.log`` (4x4) or ``.info`` (6x6) file: 'i j n' then the
+    matrix's rows, tab-separated."""
+    with open(path, "w") as f:
+        for (i, j), m in zip(pairs, mats):
+            f.write(f"{i}\t{j}\t{n_frag}\n")
+            for row in m:
+                f.write("\t".join(repr(float(v)) for v in row) + "\n")
+
+
+def write_threedmatch_tree(root: str, seed: int) -> str:
+    """A 3DMatch test tree: one scene of 4 fragments (x slabs of bench.py's
+    wavy surface, 600000 points over 5.2 m x 5.2 m, each fragment in a
+    local frame of its own), ``gt.log`` with the inverse of each gt pair's
+    source-to-target pose and ``gt.info`` of 100 I.  Returns the scene."""
+    import numpy as np
+    from buffer_tpu_torch.data.ply import write_ply_points
+    from buffer_tpu_torch.data.synthetic import _shoemake_rotation, wavy_surface
+    rs = np.random.RandomState(seed)
+    world = wavy_surface(rs, 600000, 2.6)
+    scene = "synthetic-wavy-scene"
+    fdir = os.path.join(root, "test", "3DMatch", "fragments", scene)
+    gdir = os.path.join(root, "test", "3DMatch", "gt_result", scene)
+    os.makedirs(fdir)
+    os.makedirs(gdir)
+    poses = []
+    for i, (lo, hi) in enumerate(EVAL_SLABS):
+        pose = np.eye(4)
+        pose[:3, :3] = _shoemake_rotation(rs)
+        pose[:3, 3] = rs.uniform(-1.0, 1.0, 3)
+        frag = world[(world[:, 0] >= lo) & (world[:, 0] <= hi)]
+        write_ply_points(os.path.join(fdir, f"cloud_bin_{i}.ply"),
+                         (frag - pose[:3, 3]) @ pose[:3, :3])
+        poses.append(pose)
+    n = len(EVAL_SLABS)
+    write_redwood(os.path.join(gdir, "gt.log"), EVAL_GT_PAIRS,
+                  [np.linalg.inv(np.linalg.inv(poses[j]) @ poses[i])
+                   for i, j in EVAL_GT_PAIRS], n)
+    write_redwood(os.path.join(gdir, "gt.info"), EVAL_GT_PAIRS,
+                  [100.0 * np.eye(6)] * len(EVAL_GT_PAIRS), n)
+    return scene
+
+
+def write_kitti_tree(root: str, seed: int) -> None:
+    """A KITTI odometry sequence 08: ``EVAL_SCANS`` velodyne scans (float32
+    x, y, z, reflectance) of one ``lidar_scene`` from sensor origins
+    ``EVAL_SCAN_GAP`` m apart along the road, at ``lidar_pair``'s density,
+    and the camera poses in ``poses/08.txt``."""
+    import numpy as np
+    from buffer_tpu_torch.data.kitti import velo2cam
+    from buffer_tpu_torch.data.synthetic import _lidar_view, lidar_scene
+    rs = np.random.RandomState(seed)
+    scene = lidar_scene(rs)
+    vdir = os.path.join(root, "dataset", "sequences", "08", "velodyne")
+    os.makedirs(vdir)
+    os.makedirs(os.path.join(root, "dataset", "poses"))
+    Vc = velo2cam().T                  # velodyne -> camera
+    rows = []
+    for t in range(EVAL_SCANS):
+        d = np.array([EVAL_SCAN_GAP * t, 0.0, 0.0])
+        # the velodyne frames differ by the translation d, so the camera
+        # pose is Vc T(d) Vc^-1, a translation by Vc's rotation of d
+        P = np.eye(4)
+        P[:3, 3] = Vc[:3, :3] @ d
+        rows.append(" ".join(repr(float(v)) for v in P[:3].reshape(-1)))
+        scan = _lidar_view(rs, np.array([0.0, 0.0, 1.73]) + d, scene)
+        np.concatenate([scan, np.zeros((len(scan), 1), np.float32)], 1
+                       ).astype(np.float32).tofile(
+            os.path.join(vdir, f"{t:06d}.bin"))
+    with open(os.path.join(root, "dataset", "poses", "08.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+@contextlib.contextmanager
+def recorded_eval(calls: list):
+    """Within the block every ``register_pair`` of the eval harness is
+    recorded in ``calls`` with the launches it made and its milliseconds
+    (host clock up to a synchronize)."""
+    import torch
+    from buffer_tpu_torch.eval import harness
+    from buffer_tpu_torch.kernels import cuda
+    fn = harness.register_pair
+
+    def recorded(model, inputs, draws, device=None):
+        before = cuda.launch_counts()
+        t0 = time.perf_counter()
+        res = fn(model, inputs, draws, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        after = cuda.launch_counts()
+        calls.append({"model": model, "inputs": inputs, "draws": draws,
+                      "result": res, "ms": ms,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return res
+
+    harness.register_pair = recorded
+    try:
+        yield
+    finally:
+        harness.register_pair = fn
+
+
+def run_entry(argv, plain: bool = False):
+    """``scripts.test.main(argv)`` with every harness ``register_pair``
+    recorded, the counts set to 0 just before; with ``plain`` the kernels'
+    plain versions at their call sites.  Returns (summary, records, counts,
+    wall seconds)."""
+    from buffer_tpu_torch.kernels import cuda, sites
+    from buffer_tpu_torch.scripts import test as entry
+    calls = []
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with recorded_eval(calls), (sites.plain_versions() if plain
+                                else contextlib.nullcontext()):
+        out = entry.main(argv)
+    return out, calls, cuda.launch_counts(), time.perf_counter() - t0
+
+
+def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
+             gts: list, want_state: dict) -> tuple:
+    """One run of the test entry point over a written tree, with its gates;
+    returns (printed line, records)."""
+    import numpy as np
+    import torch
+    from buffer_tpu_torch.eval import harness, metrics
+    from buffer_tpu_torch.pipeline import registration
+    name = f"eval {preset} {flag}"
+    out, calls, counts, wall = run_entry(
+        ["--config", preset, "--data-root", root, flag, weights,
+         "--log-dir", log_dir, "--device", str(dev)])
+    n = EVAL_PAIRS[preset]
+    if out["pairs"] != n or len(calls) != n:
+        raise RuntimeError(f"{name}: {out['pairs']} pairs, {len(calls)} "
+                           f"registrations, expected {n}")
+    for c in calls:
+        check_launches(preset, c["launches"])
+    state = calls[0]["model"].state_dict()
+    for k, v in want_state.items():
+        if not k.endswith("num_batches_tracked") or flag == "--weights":
+            if not torch.equal(state[k].cpu(), v):
+                raise RuntimeError(f"{name}: loaded {k} differs from the file")
+    first = calls[0]
+    again = registration.register_pair(first["model"], first["inputs"],
+                                       first["draws"], device=dev)
+    if not torch.equal(again.pose, first["result"].pose):
+        raise RuntimeError(f"{name}: run_eval's first pose is not "
+                           "register_pair's on the same inputs and draws")
+    poses = [c["result"].pose.cpu().numpy().astype(np.float64) for c in calls]
+    scene = sorted(os.listdir(log_dir))
+    if len(scene) != 1:
+        raise RuntimeError(f"{name}: est.log scenes {scene}")
+    _, traj = metrics.read_trajectory(os.path.join(log_dir, scene[0], "est.log"))
+    inv = np.stack([np.linalg.inv(p) for p in poses])
+    if traj.shape != inv.shape or not np.allclose(traj, inv, rtol=1e-6,
+                                                  atol=1e-6):
+        raise RuntimeError(f"{name}: est.log is not the inverse poses")
+    rte_th, rre_th = harness.THRESHOLDS[preset]
+    states = []
+    for p, gt in zip(poses, gts):
+        rte, rre = metrics.rte_rre(p, np.asarray(gt, np.float64))
+        states.append([float(rte < rte_th and rre < rre_th), rte, rre])
+    want = metrics.dgr_recall(np.array(states))
+    for k, v in want.items():
+        if not (v == out[k] or (math.isnan(v) and math.isnan(out[k]))):
+            raise RuntimeError(f"{name}: {k} {out[k]}, per-pair records {v}")
+    rr = out.get("registration_recall")
+    if (preset == "3DMatch") != (rr is not None) or (
+            rr is not None and not 0.0 <= rr <= 1.0):
+        raise RuntimeError(f"{name}: registration recall {rr}")
+    if not all(bool(torch.isfinite(c["result"].pose).all()) for c in calls):
+        raise RuntimeError(f"{name}: non-finite pose")
+    n_kpts = [[int(v) for v in c["result"].kpt_valid.sum(1)] for c in calls]
+    if min(min(k) for k in n_kpts) <= 0:
+        raise RuntimeError(f"{name}: no eligible keypoints: {n_kpts}")
+    line = {"path": "eval", "preset": preset, "weights": flag, "pairs": n,
+            "model_ms_per_pair": 1e3 * out["model_time"],
+            "data_ms_per_pair": 1e3 * out["data_time"], "wall_s": wall,
+            "recall": out["recall"], "TE": out["TE"], "RE": out["RE"],
+            "registration_recall": rr,
+            "launches_per_pair": {k: v for k, v in calls[0]["launches"].items()
+                                  if v},
+            "register_ms": [c["ms"] for c in calls],
+            "eligible_keypoints": n_kpts,
+            "launches": counts, "rte_rre": [s[1:] for s in states],
+            "num_mutual": [int(c["result"].num_mutual) for c in calls],
+            "valid_points": {f: [int(m.sum()) for m in getattr(
+                first["inputs"], f)] for f in ("raw_mask", "sds_mask")}}
+    print(json.dumps(line))
+    return line, calls
+
+
+def eval_path(dev, cfg, kcfg, train_dir: str) -> dict:
+    """The evaluation path through the test entry point over trees written
+    into ``build/eval_smoke/`` (afresh: KITTI's ICP cache lives there), then
+    the 3DMatch tree once more with the plain versions."""
+    import torch
+    from buffer_tpu_torch.data.kitti import KITTIDataset
+    from buffer_tpu_torch.data.threedmatch import ThreeDMatchDataset
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.train.checkpoint import merge_stage_checkpoints
+    base = str(cuda.BUILD_DIR / "eval_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.time()
+    roots = {"3DMatch": os.path.join(base, "ThreeDMatch"),
+             "KITTI": os.path.join(base, "KITTI")}
+    write_threedmatch_tree(roots["3DMatch"], 21)
+    write_kitti_tree(roots["KITTI"], 22)
+    snapshots = {}
+    for preset, c in (("3DMatch", cfg), ("KITTI", kcfg)):
+        sd = BufferModel(c, seed=EVAL_SNAPSHOT_SEED).state_dict()
+        d = os.path.join(base, f"snapshot_{preset}")
+        for stage in STAGES:
+            os.makedirs(os.path.join(d, stage))
+            torch.save(sd, os.path.join(d, stage, "best.pth"))
+        snapshots[preset] = (d, sd)
+    gts = {"3DMatch": [], "KITTI": []}
+    for preset, ds in (("3DMatch", ThreeDMatchDataset), ("KITTI", KITTIDataset)):
+        c = (cfg if preset == "3DMatch" else kcfg)
+        d = ds("test", c.replace(data=dataclasses.replace(
+            c.data, root=roots[preset])))
+        if len(d) != EVAL_PAIRS[preset]:
+            raise RuntimeError(f"eval {preset}: the loader finds {len(d)} pairs")
+        gts[preset] = [d[i]["relt_pose"] for i in range(len(d))]
+    setup_s = time.time() - t0
+
+    lines, records = [], {}
+    own = merge_stage_checkpoints({s: os.path.join(train_dir, s, "best.pth")
+                                   for s in STAGES})
+    for preset, flag, weights, want in (
+            ("3DMatch", "--torch-weights", snapshots["3DMatch"][0],
+             snapshots["3DMatch"][1]),
+            ("3DMatch", "--weights", train_dir, own),
+            ("KITTI", "--torch-weights", snapshots["KITTI"][0],
+             snapshots["KITTI"][1])):
+        line, calls = eval_run(dev, preset, roots[preset], flag, weights,
+                               os.path.join(base, f"log_{preset}{flag}"),
+                               gts[preset], want)
+        lines.append(line)
+        records[(preset, flag)] = calls
+
+    # the 3DMatch tree through the plain versions: the same keypoints and
+    # mutual counts, the pose within 1e-4, pair by pair
+    out, plain, counts, _ = run_entry(
+        ["--config", "3DMatch", "--data-root", roots["3DMatch"],
+         "--torch-weights", snapshots["3DMatch"][0], "--log-dir",
+         os.path.join(base, "log_plain"), "--device", str(dev)], plain=True)
+    if any(counts.values()) or len(plain) != EVAL_PAIRS["3DMatch"]:
+        raise RuntimeError(f"eval plain: launches {counts}, {len(plain)} pairs")
+    errs = []
+    for k, p in zip(records[("3DMatch", "--torch-weights")], plain):
+        rk, rp = k["result"], p["result"]
+        err = float((rk.pose - rp.pose).abs().max())
+        if (not torch.equal(rk.kpts, rp.kpts)
+                or not torch.equal(rk.kpt_valid, rp.kpt_valid)
+                or int(rk.num_mutual) != int(rp.num_mutual) or err > 1e-4):
+            raise RuntimeError(f"eval plain: kernel and plain paths disagree: "
+                               f"mutual {int(rk.num_mutual)} vs "
+                               f"{int(rp.num_mutual)}, pose {err}")
+        errs.append(err)
+    check = {"path": "eval 3DMatch", "pairs": len(errs), "kpts_equal": True,
+             "pose_max_abs_err": errs}
+    print(json.dumps({"plain_eval_check": check}))
+    return {"setup_s": setup_s, "runs": lines, "plain_check": check}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -662,6 +959,9 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     tdraws = make_train_draws(cfg, tgen, dev)
     train_checks = [plain_train_check(st, tmodel, cfg, batches[0], tdraws, dev,
                                       save_dir) for st in ("Desc", "Ref")]
+
+    # ---- the evaluation path through the test entry point ---------------
+    evaluation = eval_path(dev, cfg, kcfg, save_dir)
 
     # ---- the neighbour and ball calls of one (eval) training step -------
     from buffer_tpu_torch.ops import neighbors
@@ -949,6 +1249,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
+            "eval": evaluation,
             "train": train["stages"], "train_launches": train["launches"],
             "plain_train_checks": train_checks,
             "ball_points_calls": [{"B": a[0].shape[0], "Q": a[0].shape[1],

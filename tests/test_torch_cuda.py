@@ -465,3 +465,47 @@ def test_bnn1_and_nearest_bad_plans_raise(card):
     for plan in ((3, 2), (4, 16)):
         with pytest.raises(RuntimeError):
             geom_cuda.nearest_launcher(sup, sup, sv, outs, plan)()
+
+
+@pytest.mark.cuda
+def test_test_entry_point_on_card(card, tmp_path):
+    """``python -m buffer_tpu_torch.scripts.test`` on the card (the default
+    device) at the tiny plan, over a small 3DMatch tree written here:
+    every pair launches the tiny plan's kernels (its neighbour searches
+    take the exact routes) and est.log holds a pose a pair."""
+    from buffer_tpu_torch.data.ply import write_ply_points
+    from buffer_tpu_torch.data.synthetic import wavy_surface
+    from buffer_tpu_torch.eval import metrics
+    from buffer_tpu_torch.scripts import test as entry
+    from buffer_tpu_torch.train import checkpoint
+    cuda.build_all()
+    rs = np.random.RandomState(3)
+    world = wavy_surface(rs, 40000, 1.2)
+    root, scene = tmp_path / "tree", "wavy"
+    fdir = root / "test" / "3DMatch" / "fragments" / scene
+    gdir = root / "test" / "3DMatch" / "gt_result" / scene
+    fdir.mkdir(parents=True)
+    gdir.mkdir(parents=True)
+    for i, lo in enumerate((-1.2, -0.6, 0.0)):
+        frag = world[(world[:, 0] >= lo) & (world[:, 0] <= lo + 1.2)]
+        write_ply_points(str(fdir / f"cloud_bin_{i}.ply"), frag)
+    pairs = [(0, 1), (0, 2)]
+    with open(gdir / "gt.log", "w") as f, open(gdir / "gt.info", "w") as g:
+        for i, j in pairs:
+            f.write(f"{i}\t{j}\t3\n" + "1 0 0 0\n0 1 0 0\n0 0 1 0\n0 0 0 1\n")
+            g.write(f"{i}\t{j}\t3\n" + "".join(
+                " ".join("100" if r == c else "0" for c in range(6)) + "\n"
+                for r in range(6)))
+    model = BufferModel(tiny_cfg(), seed=2)
+    for s in ("Ref", "Desc", "Keypt", "Inlier"):
+        checkpoint.save(model, str(tmp_path / "w" / s / "best.pth"))
+    cuda.reset_launches()
+    out = entry.main(["--config", "3DMatch", "--tiny", "--data-root",
+                      str(root), "--weights", str(tmp_path / "w"),
+                      "--log-dir", str(tmp_path / "log")])
+    assert out["pairs"] == 2 and 0.0 <= out["registration_recall"] <= 1.0
+    launches = {k: v for k, v in cuda.launch_counts().items() if v}
+    assert launches == {"nearest": 4, "fps": 2, "ball_sample": 2,
+                        "spt_pooled": 2}
+    _, traj = metrics.read_trajectory(str(tmp_path / "log" / scene / "est.log"))
+    assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()
