@@ -277,6 +277,22 @@ def unbanded(cfg: Config) -> Config:
     return cfg.replace(static=replace(cfg.static, knn_band=0))
 
 
+def small_cfg() -> Config:
+    """The mid-size plan of the train-from-scratch run
+    (``scripts/train_then_register.py``): 384 keypoints, 4096/2048/512
+    pyramid points, so des_r = 0.3 patches stay local on ~0.9 m scenes at
+    2 cm density and hundreds of training steps take minutes."""
+    c = threedmatch_cfg()
+    return c.replace(
+        point=replace(c.point, num_keypts=384),
+        static=StaticConfig(points_l0=4096, points_l1=2048, points_l2=512,
+                            raw_points=16384, max_matches=384,
+                            knn_chunk=2048),
+        match=replace(c.match, hypotheses=512),
+        train=replace(c.train, pos_num=256),
+    )
+
+
 def tiny_cfg() -> Config:
     """A miniature static plan for tests (same fields as the reference's)."""
     c = threedmatch_cfg()

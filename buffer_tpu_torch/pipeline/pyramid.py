@@ -1,5 +1,5 @@
 """Static conv pyramid and input normals (counterpart of
-``buffer_tpu/pipeline/pyramid.py``, its host-built-levels path).
+``buffer_tpu/pipeline/pyramid.py``).
 
 Per level: radius-limited neighbour tables, pooling tables into the finer
 level, and nearest-coarse upsample indices; radii follow the reference
@@ -8,6 +8,12 @@ level, and nearest-coarse upsample indices; radii follow the reference
 The level-0 kNN serves both the PCA normals and the level-0 conv list.
 Every search gets its query level's mask: the banded kernels centre each
 query tile's window by the ratio of the valid counts.
+
+Levels 1 and 2 come from the host (``data/preprocess.prepare_pair``,
+Morton-ordered) or, when none are given, from voxel subsampling on the
+device (cells ``2 v0`` and ``4 v0``), one cloud at a time.  Device levels
+come in voxel-key order, not Morton order, and the banded searches run over
+that rank order, as in the reference.
 """
 
 from __future__ import annotations
@@ -18,16 +24,31 @@ from buffer_tpu_torch.config import Config
 from buffer_tpu_torch.models.point_learner import Pyramid
 from buffer_tpu_torch.ops.neighbors import nearest, radius_knn
 from buffer_tpu_torch.ops.normals import normals_from_neighbors
+from buffer_tpu_torch.ops.subsample import voxel_subsample
+
+
+def device_levels(cfg: Config, points: torch.Tensor, masks: torch.Tensor):
+    """(lvl1, lvl1_mask, lvl2, lvl2_mask) of each cloud of points [B, N0, 3]
+    by voxel subsampling on the points' device
+    (``buffer_tpu/pipeline/pyramid.py:124-134``)."""
+    st = cfg.static
+    pts, msk = [points], [masks]
+    for lvl, size in ((0, st.points_l1), (1, st.points_l2)):
+        dl = (2 ** (lvl + 1)) * cfg.data.voxel_size_0
+        out = [voxel_subsample(p, m, dl, size)
+               for p, m in zip(pts[lvl], msk[lvl])]
+        pts.append(torch.stack([o[0] for o in out]))
+        msk.append(torch.stack([o[1] for o in out]))
+    return pts[1], msk[1], pts[2], msk[2]
 
 
 def build_pyramid_and_normals(cfg: Config, points: torch.Tensor,
-                              masks: torch.Tensor, levels) -> Pyramid:
+                              masks: torch.Tensor, levels=None) -> Pyramid:
     """points [B, N0, 3], masks [B, N0], levels = (lvl1, lvl1_mask, lvl2,
-    lvl2_mask) built on the host (data/preprocess.prepare_pair)."""
+    lvl2_mask) built on the host (data/preprocess.prepare_pair), or None to
+    build them on the device (:func:`device_levels`)."""
     if levels is None:
-        raise NotImplementedError(
-            "on-device voxel subsampling of the pyramid levels is not ported "
-            "yet: pass the host-built levels (data/preprocess.prepare_pair)")
+        levels = device_levels(cfg, points, masks)
     st = cfg.static
     r0 = cfg.data.voxel_size_0 * cfg.point.conv_radius
     band = st.knn_band or None

@@ -36,7 +36,8 @@ class PairInputs(NamedTuple):
     """Static-shape inputs of one fragment pair (both clouds padded to the
     ``cfg.static`` plan).  ``raw`` is the first-downsample cloud the
     patches are sampled from, ``sds`` the second-downsample cloud the point
-    learner runs on, ``lvl1``/``lvl2`` the host-built pyramid levels."""
+    learner runs on, ``lvl1``/``lvl2`` the host-built pyramid levels (None:
+    the pyramid builds them on the device)."""
 
     raw: torch.Tensor         # [2, R, 3]
     raw_mask: torch.Tensor    # [2, R]

@@ -2,13 +2,15 @@
 step, on the card.
 
     python -m buffer_tpu_torch.utils.profiling [--config {3DMatch,KITTI}]
-        [--knn-band N] [--pairs N] [--out DIR]
+        [--knn-band N] [--device-levels] [--pairs N] [--out DIR]
         [--train-stage {Ref,Desc,Keypt,Inlier}]
 
 Runs ``register_pair`` (the preset at full width with its own
 ``knn_band`` unless ``--knn-band`` says otherwise, seeded random weights;
 3DMatch on :func:`~buffer_tpu_torch.data.synthetic.surface_pair`, KITTI on
-:func:`~buffer_tpu_torch.data.synthetic.lidar_pair`) once to warm up,
+:func:`~buffer_tpu_torch.data.synthetic.lidar_pair`; with
+``--device-levels`` without its host-built pyramid levels, so that the
+pyramid voxel-subsamples them on the card) once to warm up,
 then ``--pairs`` more without and ``--pairs`` more under
 ``torch.profiler``.  Prints one JSON line: the wall time per pair without
 and with the profiler, the device time summed over CUDA kernels (busy
@@ -16,7 +18,8 @@ share = device time / wall time without the profiler), the kernel launch
 count, per stage of ``register_pair`` its span on the device timeline
 (CUDA events, without the profiler) beside the kernel time between its
 boundary markers in the profile, and the operators with the most device
-time.  The Chrome trace goes to ``DIR/profile_<config>_band<N>.json.gz``.
+time.  The Chrome trace goes to ``DIR/profile_<config>_band<N>.json.gz``
+(``..._levels.json.gz`` with device levels).
 
 With ``--train-stage`` it profiles ``train/trainer.train_step`` of that
 stage on the first pair with its ground-truth pose (one warm-up step, then
@@ -140,6 +143,8 @@ def main() -> int:
     ap.add_argument("--config", choices=("3DMatch", "KITTI"), default="3DMatch")
     ap.add_argument("--knn-band", type=int, default=None,
                     help="static.knn_band (default: the preset's)")
+    ap.add_argument("--device-levels", action="store_true",
+                    help="drop the host-built pyramid levels")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--train-stage", choices=("Ref", "Desc", "Keypt", "Inlier"),
@@ -158,6 +163,9 @@ def main() -> int:
         inputs, T = lidar_pair(cfg, 13, dev)
     else:
         inputs, T = surface_pair(cfg, 0, dev)
+    if args.device_levels:
+        inputs = inputs._replace(lvl1=None, lvl1_mask=None, lvl2=None,
+                                 lvl2_mask=None)
     if args.train_stage:
         return profile_train(args, cfg, model, inputs, T, dev)
     draws = make_draws(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -186,10 +194,12 @@ def main() -> int:
                   "busy_share": busy[s] / span[s] if span[s] else None}
               for s in StageTimer.STAGES}
     os.makedirs(args.out, exist_ok=True)
+    levels = "_levels" if args.device_levels else ""
     save_trace(prof, os.path.join(
-        args.out, f"profile_{args.config}_band{cfg.static.knn_band}.json"))
+        args.out, f"profile_{args.config}_band{cfg.static.knn_band}{levels}.json"))
     print(json.dumps({
         "config": args.config, "knn_band": cfg.static.knn_band,
+        "device_levels": args.device_levels,
         "pairs": args.pairs, "wall_ms_per_pair": plain_wall_ms / args.pairs,
         "profiled_wall_ms_per_pair": wall_ms / args.pairs,
         "device_ms_per_pair": device_ms / args.pairs,

@@ -6,9 +6,9 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives seven paths, each with every kernel launch counter set to 0 just
+2. Drives eleven paths, each with every kernel launch counter set to 0 just
    before it and read just after; every kernel of a path must have run on
-   every pair of it:
+   every pair (or step) of it, as often as the path's table says:
    * the main path: ``register_pair`` on the shipped 3DMatch preset
      (``knn_band = 4096``) at full width -- 30720/10240/3072 pyramid points,
      65536 raw points, 1500 keypoints, 512-point patches, 1024 RANSAC
@@ -51,7 +51,29 @@
      RE and pairs must match the per-pair records, the registration recall
      lie in [0, 1].  Prints a line per run with the harness's model and
      data ms/pair.
-   Prints ms/pair and a per-stage breakdown (CUDA events) of each preset,
+   * "3DMatch device levels": the main path's first pair with
+     ``lvl1 = None`` (levels 1 and 2 voxel-subsampled on the card), twice:
+     the levels equal ``prepare_pair``'s as point sets (1e-5, equal
+     counts), the plain path agrees, the banded searches over them are
+     checked bit-equal and scored; the pyramid span beside the host's;
+   * "train entry 3DMatch" and "train entry KITTI":
+     ``buffer_tpu_torch.scripts.train.main`` at the presets' full width over
+     training trees written into ``build/train_entry/`` (KITTI's ICP cached
+     first), every stage 1 epoch of 3 steps and its val split: every step's
+     launches as ``STEP_LAUNCHES``, losses finite, no step skipped, only the
+     active stage moves, ``best.pth`` and a val line for every stage; ms/step
+     and peak memory a stage; one KITTI Ref step against its plain twin;
+   * "presets": the test entry point at full width, one pair each, with a
+     seeded reference snapshot: ThreeD2ETH over an ETH tree written here,
+     KITTI2ThreeD over the eval 3DMatch tree's 3DLoMatch pair, ThreeD2KITTI
+     over the eval KITTI tree (its level-1 overflow warning required), with
+     the eval path's gates;
+   * "train_then_register": ``scripts.train_then_register.main`` at 8 train
+     pairs, 1 epoch, 4 held-out pairs (a plumbing gate, no recall bar):
+     every held-out pair's launches as small_cfg's table, the record
+     written, recall and diagnosis finite.
+   Prints each phase's wall seconds (``phase_s``), ms/pair and a per-stage
+   breakdown (CUDA events) of each preset,
    and ms/step (host clock around a synchronized step) and peak memory
    (``torch.cuda.max_memory_allocated``) of each training stage.
 3. Runs the first pair of each preset once more with the plain PyTorch
@@ -159,6 +181,36 @@ STAGES = ("Ref", "Desc", "Keypt", "Inlier")
 TRAIN_STEP = {"Ref": {"bknn": 4, "bnn1": 2, "nearest": 1}}
 TRAIN_STEP.update({s: dict(TRAIN_STEP["Ref"], ball_sample_points=1)
                    for s in STAGES[1:]})
+# the same on the KITTI preset: its pyramid bands level 2 too
+KITTI_TRAIN_STEP = {"Ref": {"bknn": 5, "bnn1": 2, "nearest": 1}}
+KITTI_TRAIN_STEP.update({s: dict(KITTI_TRAIN_STEP["Ref"], ball_sample_points=1)
+                         for s in STAGES[1:]})
+STEP_LAUNCHES = {"3DMatch": TRAIN_STEP, "KITTI": KITTI_TRAIN_STEP}
+# the pyramid of device-built levels launches what the host-built one does
+PER_PAIR["3DMatch device levels"] = PER_PAIR["3DMatch"]
+# the presets through the test entry point, one pair each: ThreeD2ETH and
+# KITTI2ThreeD have 3DMatch's static plan, ThreeD2KITTI KITTI's bands
+# (its 16384-point level 1 is banded like KITTI's 20480)
+PER_PAIR.update({"ThreeD2ETH": PER_PAIR["3DMatch"],
+                 "KITTI2ThreeD": PER_PAIR["3DMatch"],
+                 "ThreeD2KITTI": PER_PAIR["KITTI"]})
+EVAL_PAIRS.update({"ThreeD2ETH": 1, "KITTI2ThreeD": 1, "ThreeD2KITTI": 1})
+# train_then_register's held-out pairs on small_cfg (4096/2048/512 points):
+# the 4096 band still takes the banded kNN at levels 0-1 and both pools (the
+# window covers the support), but the l0 -> l1 1-NN's 2048-point support is
+# under twice the band, so both upsamples take the exact 1-NN
+PER_PAIR["train_then_register"] = {"bknn": 4, "nearest": 2, "fps": 1,
+                                   "ball_sample": 1, "spt_pooled": 1}
+# the train entry's trees: 3DMatch fragments (x slabs of one wavy surface
+# a scene) paired consecutively in the overlap file; a KITTI sequence a
+# split of scans EVAL_SCAN_GAP apart, which pair mining turns into pairs
+# (0, 1), (2, 3), ...
+TRAIN_TREE_FRAGMENTS = {"train": 4, "val": 2}
+TRAIN_TREE_SCANS = {"train": (0, 7), "val": (6, 3)}   # sequence, scans
+TRAIN_ENTRY_STEPS = 3
+# train_then_register at a reduced count (a plumbing gate): pairs, epochs,
+# held-out pairs
+TTR_ARGS = ("--train-pairs", "8", "--epochs", "1", "--eval-pairs", "4")
 
 
 def card_line() -> str:
@@ -523,7 +575,8 @@ def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
     return {"model": model, "stages": stages, "launches": cuda.launch_counts()}
 
 
-def plain_train_check(stage, model, cfg, batch, draws, dev, save_dir) -> dict:
+def plain_train_check(stage, model, cfg, batch, draws, dev, save_dir,
+                      path: str = "3DMatch train") -> dict:
     """One training step of ``stage`` from the same state and draws with the
     kernels and with the plain versions, under PyTorch's deterministic
     algorithms: loss within 1e-5 relative, updated parameters within 1e-6."""
@@ -551,12 +604,13 @@ def plain_train_check(stage, model, cfg, batch, draws, dev, save_dir) -> dict:
     loss_rel = abs(lk - lp) / max(abs(lp), 1e-30)
     param_err = max(float((pk[k].float() - pp[k].float()).abs().max())
                     for k in pk if pk[k].is_floating_point())
-    out = {"path": "3DMatch train", "stage": stage, "loss_kernels": lk,
+    out = {"path": path, "stage": stage, "loss_kernels": lk,
            "loss_plain": lp, "loss_rel_err": loss_rel,
            "param_max_abs_err": param_err}
     print(json.dumps({"plain_train_check": out}))
     if loss_rel > 1e-5 or param_err > 1e-6:
-        raise RuntimeError(f"train {stage}: kernel and plain steps disagree: {out}")
+        raise RuntimeError(f"{path} {stage}: kernel and plain steps disagree: "
+                           f"{out}")
     return out
 
 
@@ -576,49 +630,115 @@ def write_threedmatch_tree(root: str, seed: int) -> str:
     local frame of its own), ``gt.log`` with the inverse of each gt pair's
     source-to-target pose and ``gt.info`` of 100 I.  Returns the scene."""
     import numpy as np
-    from buffer_tpu_torch.data.ply import write_ply_points
-    from buffer_tpu_torch.data.synthetic import _shoemake_rotation, wavy_surface
     rs = np.random.RandomState(seed)
-    world = wavy_surface(rs, 600000, 2.6)
     scene = "synthetic-wavy-scene"
     fdir = os.path.join(root, "test", "3DMatch", "fragments", scene)
     gdir = os.path.join(root, "test", "3DMatch", "gt_result", scene)
-    os.makedirs(fdir)
+    poses = write_fragments(fdir, rs, len(EVAL_SLABS), "cloud_bin")
     os.makedirs(gdir)
-    poses = []
-    for i, (lo, hi) in enumerate(EVAL_SLABS):
-        pose = np.eye(4)
-        pose[:3, :3] = _shoemake_rotation(rs)
-        pose[:3, 3] = rs.uniform(-1.0, 1.0, 3)
-        frag = world[(world[:, 0] >= lo) & (world[:, 0] <= hi)]
-        write_ply_points(os.path.join(fdir, f"cloud_bin_{i}.ply"),
-                         (frag - pose[:3, 3]) @ pose[:3, :3])
-        poses.append(pose)
-    n = len(EVAL_SLABS)
-    write_redwood(os.path.join(gdir, "gt.log"), EVAL_GT_PAIRS,
-                  [np.linalg.inv(np.linalg.inv(poses[j]) @ poses[i])
-                   for i, j in EVAL_GT_PAIRS], n)
-    write_redwood(os.path.join(gdir, "gt.info"), EVAL_GT_PAIRS,
-                  [100.0 * np.eye(6)] * len(EVAL_GT_PAIRS), n)
+    write_gt(gdir, EVAL_GT_PAIRS, poses, len(EVAL_SLABS))
     return scene
 
 
-def write_kitti_tree(root: str, seed: int) -> None:
-    """A KITTI odometry sequence 08: ``EVAL_SCANS`` velodyne scans (float32
+def write_fragments(fdir: str, rs, n: int, stem: str, scale: float = 1.0):
+    """Fragments ``<stem>_<i>.ply`` of one world of bench.py's wavy surface
+    (600000 points over 5.2 m x 5.2 m, all times ``scale``): the first
+    ``n`` x slabs of ``EVAL_SLABS``, each in a local frame of its own.
+    Returns the local-to-world poses."""
+    import numpy as np
+    from buffer_tpu_torch.data.ply import write_ply_points
+    from buffer_tpu_torch.data.synthetic import _shoemake_rotation, wavy_surface
+    world = wavy_surface(rs, 600000, 2.6) * np.float32(scale)
+    os.makedirs(fdir)
+    poses = []
+    for i, (lo, hi) in enumerate(EVAL_SLABS[:n]):
+        pose = np.eye(4)
+        pose[:3, :3] = _shoemake_rotation(rs)
+        pose[:3, 3] = rs.uniform(-1.0, 1.0, 3) * scale
+        frag = world[(world[:, 0] >= lo * scale) & (world[:, 0] <= hi * scale)]
+        write_ply_points(os.path.join(fdir, f"{stem}_{i}.ply"),
+                         (frag - pose[:3, 3]) @ pose[:3, :3])
+        poses.append(pose)
+    return poses
+
+
+def write_gt(gdir: str, pairs, poses, n_frag: int) -> None:
+    """``gt.log`` with the inverse of each pair's source-to-target pose and
+    ``gt.info`` of 100 I."""
+    import numpy as np
+    write_redwood(os.path.join(gdir, "gt.log"), pairs,
+                  [np.linalg.inv(np.linalg.inv(poses[j]) @ poses[i])
+                   for i, j in pairs], n_frag)
+    write_redwood(os.path.join(gdir, "gt.info"), pairs,
+                  [100.0 * np.eye(6)] * len(pairs), n_frag)
+
+
+def write_threedmatch_train_tree(root: str, seed: int) -> None:
+    """A 3DMatch training tree: a train scene of TRAIN_TREE_FRAGMENTS
+    ["train"] fragments and a val scene of ["val"], each fragment with its
+    ``.pose.npy``, the consecutive pairs in ``3DMatch_train_overlap.pkl``
+    and the scenes in ``{train,val}_3dmatch.txt``."""
+    import pickle
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    overlap = {}
+    for split, n in TRAIN_TREE_FRAGMENTS.items():
+        scene = f"synthetic-wavy-{split}"
+        sdir = os.path.join(root, "train", scene)
+        for i, pose in enumerate(write_fragments(sdir, rs, n, "cloud_bin")):
+            np.save(os.path.join(sdir, f"cloud_bin_{i}.pose.npy"), pose)
+        overlap.update({f"{scene}/cloud_bin_{i}@{scene}/cloud_bin_{i + 1}": 0.7
+                        for i in range(n - 1)})
+        with open(os.path.join(root, "train", f"{split}_3dmatch.txt"), "w") as f:
+            f.write(scene + "\n")
+    with open(os.path.join(root, "train", "3DMatch_train_overlap.pkl"), "wb") as f:
+        pickle.dump(overlap, f)
+
+
+def write_kitti_train_tree(root: str, seed: int) -> None:
+    """A KITTI training tree: one sequence a split (TRAIN_TREE_SCANS) of
+    ``lidar_scene`` scans EVAL_SCAN_GAP apart, named in
+    ``{train,val}_kitti.txt``."""
+    for k, (split, (seq, scans)) in enumerate(TRAIN_TREE_SCANS.items()):
+        write_kitti_tree(root, seed + k, seq, scans)
+        with open(os.path.join(root, f"{split}_kitti.txt"), "w") as f:
+            f.write(f"{seq}\n")
+
+
+def write_eth_tree(root: str, seed: int) -> None:
+    """An ETH tree: ``gazebo_summer`` with two fragments of the wavy
+    surface at ThreeD2ETH's scale (5: 26 m x 26 m) and their pair in
+    ``gt.log``; the other three scenes with an empty ``gt.log``."""
+    import numpy as np
+    from buffer_tpu_torch.data.eth import ETH_SCENES
+    rs = np.random.RandomState(seed)
+    for k, scene in enumerate(ETH_SCENES):
+        sdir = os.path.join(root, scene)
+        if k:
+            os.makedirs(sdir)
+            open(os.path.join(sdir, "gt.log"), "w").close()
+            continue
+        poses = write_fragments(sdir, rs, 2, "Hokuyo", scale=5.0)
+        write_gt(sdir, [(0, 1)], poses, 2)
+
+
+def write_kitti_tree(root: str, seed: int, seq: int = 8,
+                     scans: int = EVAL_SCANS) -> None:
+    """A KITTI odometry sequence ``seq``: ``scans`` velodyne scans (float32
     x, y, z, reflectance) of one ``lidar_scene`` from sensor origins
     ``EVAL_SCAN_GAP`` m apart along the road, at ``lidar_pair``'s density,
-    and the camera poses in ``poses/08.txt``."""
+    and the camera poses in ``poses/<seq>.txt``."""
     import numpy as np
     from buffer_tpu_torch.data.kitti import velo2cam
     from buffer_tpu_torch.data.synthetic import _lidar_view, lidar_scene
     rs = np.random.RandomState(seed)
     scene = lidar_scene(rs)
-    vdir = os.path.join(root, "dataset", "sequences", "08", "velodyne")
+    vdir = os.path.join(root, "dataset", "sequences", f"{seq:02d}", "velodyne")
     os.makedirs(vdir)
-    os.makedirs(os.path.join(root, "dataset", "poses"))
+    os.makedirs(os.path.join(root, "dataset", "poses"), exist_ok=True)
     Vc = velo2cam().T                  # velodyne -> camera
     rows = []
-    for t in range(EVAL_SCANS):
+    for t in range(scans):
         d = np.array([EVAL_SCAN_GAP * t, 0.0, 0.0])
         # the velodyne frames differ by the translation d, so the camera
         # pose is Vc T(d) Vc^-1, a translation by Vc's rotation of d
@@ -629,7 +749,7 @@ def write_kitti_tree(root: str, seed: int) -> None:
         np.concatenate([scan, np.zeros((len(scan), 1), np.float32)], 1
                        ).astype(np.float32).tofile(
             os.path.join(vdir, f"{t:06d}.bin"))
-    with open(os.path.join(root, "dataset", "poses", "08.txt"), "w") as f:
+    with open(os.path.join(root, "dataset", "poses", f"{seq:02d}.txt"), "w") as f:
         f.write("\n".join(rows) + "\n")
 
 
@@ -680,17 +800,19 @@ def run_entry(argv, plain: bool = False):
 
 
 def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
-             gts: list, want_state: dict) -> tuple:
-    """One run of the test entry point over a written tree, with its gates;
-    returns (printed line, records)."""
+             gts: list, want_state: dict, extra=(), path: str = "eval") -> tuple:
+    """One run of the test entry point over a written tree (``extra``:
+    further arguments), with its gates; returns (printed line, records)."""
     import numpy as np
     import torch
+    from buffer_tpu_torch.config import make_cfg
     from buffer_tpu_torch.eval import harness, metrics
     from buffer_tpu_torch.pipeline import registration
-    name = f"eval {preset} {flag}"
+    name = f"{path} {preset} {flag}"
+    dataset = make_cfg(preset).data.dataset
     out, calls, counts, wall = run_entry(
         ["--config", preset, "--data-root", root, flag, weights,
-         "--log-dir", log_dir, "--device", str(dev)])
+         "--log-dir", log_dir, "--device", str(dev), *extra])
     n = EVAL_PAIRS[preset]
     if out["pairs"] != n or len(calls) != n:
         raise RuntimeError(f"{name}: {out['pairs']} pairs, {len(calls)} "
@@ -717,7 +839,7 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
     if traj.shape != inv.shape or not np.allclose(traj, inv, rtol=1e-6,
                                                   atol=1e-6):
         raise RuntimeError(f"{name}: est.log is not the inverse poses")
-    rte_th, rre_th = harness.THRESHOLDS[preset]
+    rte_th, rre_th = harness.THRESHOLDS[dataset]
     states = []
     for p, gt in zip(poses, gts):
         rte, rre = metrics.rte_rre(p, np.asarray(gt, np.float64))
@@ -727,7 +849,7 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
         if not (v == out[k] or (math.isnan(v) and math.isnan(out[k]))):
             raise RuntimeError(f"{name}: {k} {out[k]}, per-pair records {v}")
     rr = out.get("registration_recall")
-    if (preset == "3DMatch") != (rr is not None) or (
+    if (dataset in ("3DMatch", "3DLoMatch")) != (rr is not None) or (
             rr is not None and not 0.0 <= rr <= 1.0):
         raise RuntimeError(f"{name}: registration recall {rr}")
     if not all(bool(torch.isfinite(c["result"].pose).all()) for c in calls):
@@ -735,7 +857,7 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
     n_kpts = [[int(v) for v in c["result"].kpt_valid.sum(1)] for c in calls]
     if min(min(k) for k in n_kpts) <= 0:
         raise RuntimeError(f"{name}: no eligible keypoints: {n_kpts}")
-    line = {"path": "eval", "preset": preset, "weights": flag, "pairs": n,
+    line = {"path": path, "preset": preset, "weights": flag, "pairs": n,
             "model_ms_per_pair": 1e3 * out["model_time"],
             "data_ms_per_pair": 1e3 * out["data_time"], "wall_s": wall,
             "recall": out["recall"], "TE": out["TE"], "RE": out["RE"],
@@ -824,7 +946,304 @@ def eval_path(dev, cfg, kcfg, train_dir: str) -> dict:
     check = {"path": "eval 3DMatch", "pairs": len(errs), "kpts_equal": True,
              "pose_max_abs_err": errs}
     print(json.dumps({"plain_eval_check": check}))
-    return {"setup_s": setup_s, "runs": lines, "plain_check": check}
+    return {"setup_s": setup_s, "runs": lines, "plain_check": check,
+            "roots": roots}
+
+
+def presets_path(dev, roots: dict) -> dict:
+    """Three more presets through the test entry point at full width, one
+    pair each, with reference-format snapshots of seeded random weights:
+    ThreeD2ETH over an ETH tree written here (scale 5), KITTI2ThreeD over
+    the eval 3DMatch tree with 3DLoMatch ground truth for its low-overlap
+    pair (0, 2) (scale 0.1167, ``keypts_th = 0``, IRLS), ThreeD2KITTI over
+    the eval KITTI tree (its 16384-point level 1 overflows: the warnings of
+    ``prepare_pair`` are counted)."""
+    import warnings
+    import numpy as np
+    import torch
+    from buffer_tpu_torch.config import make_cfg
+    from buffer_tpu_torch.eval import metrics
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.scripts.test import make_dataset
+    base = os.path.dirname(roots["3DMatch"])
+    t0 = time.time()
+    eth = os.path.join(base, "ETH")
+    write_eth_tree(eth, 25)
+    scene = sorted(os.listdir(os.path.join(roots["3DMatch"], "test", "3DMatch",
+                                           "fragments")))[0]
+    lodir = os.path.join(roots["3DMatch"], "test", "3DLoMatch", scene)
+    os.makedirs(lodir)
+    gt = os.path.join(roots["3DMatch"], "test", "3DMatch", "gt_result", scene)
+    keys, traj = metrics.read_trajectory(os.path.join(gt, "gt.log"))
+    pick = [k for k, key in enumerate(keys) if (int(key[0]), int(key[1])) == (0, 2)]
+    write_redwood(os.path.join(lodir, "gt.log"), [(0, 2)], traj[pick],
+                  len(EVAL_SLABS))
+    write_redwood(os.path.join(lodir, "gt.info"), [(0, 2)],
+                  [100.0 * np.eye(6)], len(EVAL_SLABS))
+    setup_s = time.time() - t0
+    lines = []
+    for preset, root, extra in (("ThreeD2ETH", eth, ()),
+                                ("KITTI2ThreeD", roots["3DMatch"], ()),
+                                ("ThreeD2KITTI", roots["KITTI"],
+                                 ("--max-pairs", "1"))):
+        c = make_cfg(preset)
+        c = c.replace(data=dataclasses.replace(c.data, root=root))
+        ds = make_dataset(c)
+        gts = [ds[i]["relt_pose"] for i in range(EVAL_PAIRS[preset])]
+        sd = BufferModel(c, seed=EVAL_SNAPSHOT_SEED).state_dict()
+        d = os.path.join(base, f"snapshot_{preset}")
+        for stage in STAGES:
+            os.makedirs(os.path.join(d, stage))
+            torch.save(sd, os.path.join(d, stage, "best.pth"))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            line, _ = eval_run(dev, preset, root, "--torch-weights", d,
+                               os.path.join(base, f"log_{preset}"), gts, sd,
+                               extra, path="presets")
+        over = [str(w.message) for w in caught
+                if "exceeds static plan" in str(w.message)]
+        if preset == "ThreeD2KITTI" and not any("points_l1" in w for w in over):
+            raise RuntimeError("presets ThreeD2KITTI: no points_l1 overflow "
+                               "warning")
+        line = dict(line, scale=c.test.scale, keypts_th=c.point.keypts_th,
+                    pose_refine=c.test.pose_refine, points_l1=c.static.points_l1,
+                    overflow_warnings=over)
+        print(json.dumps({"preset_overflow": {preset: over}}))
+        lines.append(line)
+    return {"setup_s": setup_s, "runs": lines}
+
+
+def train_entry_path(dev, preset: str, root: str, out: str) -> dict:
+    """``scripts.train.main`` over a training tree at the preset's full
+    width: every stage 1 epoch of TRAIN_ENTRY_STEPS steps, then its val
+    split.  Every step's launches must equal the preset's table (and each
+    val step's); losses finite, no step skipped; only the active stage's
+    parameters move and the frozen stages stay whole; ``best.pth`` and a
+    val line in ``metrics.jsonl`` for every stage.  Returns the stage lines,
+    the trained model and the Ref stage's first batch."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.scripts import train as entry
+    from buffer_tpu_torch.train import trainer
+    Trainer = trainer.Trainer
+    table = STEP_LAUNCHES[preset]
+    name = f"train entry {preset}"
+    lines, first = [], {}
+
+    class Recorded(Trainer):
+        def step(self, batch, draws):
+            first.setdefault(self.stage, (self.cfg, batch))
+            (loss, stats), ms, rose = counted(
+                lambda: Trainer.step(self, batch, draws),
+                f"{name} {self.stage}", table[self.stage])
+            if not all(bool(torch.isfinite(v)) for v in stats.values()):
+                raise RuntimeError(f"{name} {self.stage}: non-finite {stats}")
+            if float(stats["grad_finite"]) != 1.0:
+                raise RuntimeError(f"{name} {self.stage}: a step was skipped")
+            self.rec["step_ms"].append(ms)
+            self.rec["launches_last_step"] = {k: v for k, v in rose.items() if v}
+            return loss, stats
+
+        def evaluate(self, it, generator):
+            n = []
+            before = cuda.launch_counts()
+            t0 = time.perf_counter()
+            res = Trainer.evaluate(self, (n.append(b) or b for b in it),
+                                   generator)
+            torch.cuda.synchronize()
+            self.rec["val_s"] = time.perf_counter() - t0
+            after = cuda.launch_counts()
+            check_launches(f"{name} {self.stage} val",
+                           {k: after[k] - before[k] for k in after},
+                           {k: v * len(n) for k, v in table[self.stage].items()})
+            self.rec["val_pairs"] = len(n)
+            if not n or not all(math.isfinite(v) for v in res.values()):
+                raise RuntimeError(f"{name} {self.stage}: val {len(n)} pairs, "
+                                   f"{res}")
+            return res
+
+        def fit(self, train_iter_fn, val_iter_fn, generator):
+            self.rec = {"step_ms": []}
+            before = {s: state_of(self.model, s) for s in STAGES}
+            torch.cuda.reset_peak_memory_stats()
+            model = Trainer.fit(self, train_iter_fn, val_iter_fn, generator)
+            peak = torch.cuda.max_memory_allocated()
+            after = {s: state_of(self.model, s) for s in STAGES}
+            moved = [k for k, v in after[self.stage].items()
+                     if "running" not in k and "num_batches" not in k
+                     and not torch.equal(v, before[self.stage][k])]
+            frozen = [s for s in STAGES if s != self.stage and any(
+                not torch.equal(v, before[s][k]) for k, v in after[s].items())]
+            ms = self.rec["step_ms"]
+            if len(ms) != TRAIN_ENTRY_STEPS or not moved or frozen:
+                raise RuntimeError(f"{name} {self.stage}: {len(ms)} steps, "
+                                   f"{len(moved)} parameters moved, frozen "
+                                   f"stages changed: {frozen}")
+            line = {"path": name, "stage": self.stage, "steps": len(ms),
+                    "first_step_ms": ms[0],
+                    "ms_per_step": sum(ms[1:]) / len(ms[1:]), "step_ms": ms,
+                    "val_pairs": self.rec["val_pairs"],
+                    "val_s_with_prep": self.rec["val_s"],
+                    "peak_mem_bytes": peak, "params_moved": len(moved),
+                    "launches_last_step": self.rec["launches_last_step"],
+                    "best": self.best}
+            print(json.dumps(line))
+            lines.append(line)
+            return model
+
+    cuda.reset_launches()
+    t0 = time.time()
+    trainer.Trainer = Recorded
+    try:
+        model = entry.main(["--config", preset, "--data-root", root, "--out", out,
+                            "--epochs", "1", "--max-iter", str(TRAIN_ENTRY_STEPS),
+                            "--device", str(dev)])
+    finally:
+        trainer.Trainer = Trainer
+    wall = time.time() - t0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f]
+    for stage in STAGES:
+        if not os.path.exists(os.path.join(out, stage, "best.pth")) or not any(
+                ln["split"] == "val" and ln["stage"] == stage for ln in logged):
+            raise RuntimeError(f"{name} {stage}: no best.pth or val line")
+    return {"stages": lines, "wall_s": wall, "launches": cuda.launch_counts(),
+            "model": model, "first": first}
+
+
+def train_entry_paths(dev, kitti_gen) -> dict:
+    """The train entry over a 3DMatch and a KITTI training tree written into
+    ``build/train_entry/`` (afresh: KITTI's ICP cache lives in its tree,
+    filled here before the runs), then one KITTI Ref step with the kernels
+    against its plain-version twin."""
+    import numpy as np
+    from buffer_tpu_torch.config import make_cfg
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.scripts.train import make_dataset
+    base = str(cuda.BUILD_DIR / "train_entry")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.time()
+    roots = {"3DMatch": os.path.join(base, "ThreeDMatch"),
+             "KITTI": os.path.join(base, "KITTI")}
+    write_threedmatch_train_tree(roots["3DMatch"], 31)
+    write_kitti_train_tree(roots["KITTI"], 32)
+    kcfg = make_cfg("KITTI")
+    kcfg = kcfg.replace(data=dataclasses.replace(kcfg.data, root=roots["KITTI"]))
+    mined = {}
+    for split in ("train", "val"):
+        ds = make_dataset(kcfg.with_stage("Ref"), split, np.random.RandomState(0))
+        mined[split] = list(ds.files)
+        for i in range(len(ds)):
+            ds[i]                       # the ICP ground truth, cached
+    if len(mined["train"]) < TRAIN_ENTRY_STEPS or not mined["val"]:
+        raise RuntimeError(f"train entry KITTI: mined pairs {mined}")
+    setup_s = time.time() - t0
+    runs = {p: train_entry_path(dev, p, roots[p], os.path.join(base, f"out_{p}"))
+            for p in ("3DMatch", "KITTI")}
+    kcfg_ref, batch = runs["KITTI"]["first"]["Ref"]
+    check = plain_train_check("Ref", runs["KITTI"]["model"], kcfg_ref, batch,
+                              make_train_draws(kcfg_ref, kitti_gen, dev), dev,
+                              os.path.join(base, "plain"), path="train entry KITTI")
+    return {"setup_s": setup_s, "mined_kitti": mined, "plain_train_check": check,
+            **{p: {k: v for k, v in r.items() if k not in ("model", "first")}
+               for p, r in runs.items()}}
+
+
+def ttr_path(dev) -> dict:
+    """``scripts.train_then_register.main`` at TTR_ARGS (a plumbing gate; no
+    recall bar): every held-out pair launches the kernels of small_cfg's
+    dispatch (counts read around each ``register_pair``); recall and
+    diagnosis finite; the JSON record written."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
+    from buffer_tpu_torch.scripts import train_then_register as ttr
+    base = str(cuda.BUILD_DIR / "ttr_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    rec_path = os.path.join(base, "record.json")
+    fn, pairs = registration.register_pair, []
+
+    def recorded(*args, **kw):
+        before = cuda.launch_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        after = cuda.launch_counts()
+        pairs.append({k: after[k] - before[k] for k in after})
+        return out
+
+    cuda.reset_launches()
+    t0 = time.time()
+    registration.register_pair = recorded
+    try:
+        rc = ttr.main([*TTR_ARGS, "--device", str(dev), "--out", base,
+                       "--json", rec_path])
+    finally:
+        registration.register_pair = fn
+    wall = time.time() - t0
+    with open(rec_path) as f:
+        rec = json.load(f)
+    n_eval = int(TTR_ARGS[TTR_ARGS.index("--eval-pairs") + 1])
+    if rc != 0 or len(pairs) != n_eval or rec["pairs"] != n_eval:
+        raise RuntimeError(f"train_then_register: rc {rc}, {len(pairs)} "
+                           f"registrations, record {rec}")
+    for rose in pairs:
+        check_launches("train_then_register", rose)
+    if not (math.isfinite(rec["value"]) and all(
+            math.isfinite(v) for v in rec["diagnosis"].values())):
+        raise RuntimeError(f"train_then_register: non-finite record {rec}")
+    line = {"path": "train_then_register", "args": list(TTR_ARGS),
+            "wall_s": wall, "recall": rec["value"],
+            "diagnosis": rec["diagnosis"],
+            "launches_per_pair": {k: v for k, v in pairs[0].items() if v},
+            "launches": cuda.launch_counts()}
+    print(json.dumps(line))
+    return line
+
+
+def device_levels_path(dev, cfg, model, pair, draws, host_line) -> dict:
+    """The main path's first pair with ``lvl1 = None`` (levels 1 and 2 by
+    voxel subsampling on the card, in voxel-key order), twice, the first a
+    warm-up: the device levels equal ``prepare_pair``'s as point sets
+    within 1e-5 with equal valid counts; the kernel path equals the plain
+    path (keypoints, mutual matches, pose within 1e-4); the banded searches
+    over the device levels checked bit-equal and scored against the exact
+    search; the pyramid stage's span beside the host-levels pair's."""
+    import torch
+    from buffer_tpu_torch.pipeline.pyramid import device_levels
+    path = "3DMatch device levels"
+    inputs = pair._replace(lvl1=None, lvl1_mask=None, lvl2=None, lvl2_mask=None)
+    counts, *rest = drive(path, model, dev, [inputs, inputs], [draws, draws])
+    line = path_line(path, cfg, counts, *rest, 0.0, pair)
+    l1, m1, l2, m2 = device_levels(cfg, pair.sds.to(dev), pair.sds_mask.to(dev))
+    valid = {}
+    for lvl, got, gmask, want, wmask in ((1, l1, m1, pair.lvl1, pair.lvl1_mask),
+                                         (2, l2, m2, pair.lvl2, pair.lvl2_mask)):
+        for b in range(2):
+            a, h = got[b][gmask[b]], want[b][wmask[b]].to(dev)
+            if len(a) != len(h) or not len(a):
+                raise RuntimeError(f"{path}: level {lvl} holds {len(a)} points "
+                                   f"on the card, {len(h)} on the host")
+            d = torch.cdist(a, h, compute_mode="donot_use_mm_for_euclid_dist")
+            far = max(float(d.min(dim=1).values.max()),
+                      float(d.min(dim=0).values.max()))
+            if far > 1e-5:
+                raise RuntimeError(f"{path}: level {lvl} points {far} from the "
+                                   "host levels")
+            valid.setdefault(f"lvl{lvl}", []).append(len(a))
+    res_k, inter_k, calls = recorded_run(model, dev, inputs, draws)
+    check = plain_path_check(path, model, dev, inputs, draws, (res_k, inter_k))
+    _, rows = banded_entries(calls, cfg, time_plain=False)
+    recall = [{"kernel": r["kernel"], "Q": r["Q"], "S": r["S"],
+               "score": r["score"]} for r in rows]
+    out = dict(line, device_valid_points=valid, plain_check=check,
+               banded_recall=recall,
+               pyramid_ms=line["stage_ms"]["pyramid"],
+               host_levels_pyramid_ms=host_line["stage_ms"]["pyramid"])
+    print(json.dumps({"device_levels": {k: out[k] for k in (
+        "device_valid_points", "banded_recall", "pyramid_ms",
+        "host_levels_pyramid_ms")}}))
+    return out
 
 
 def main() -> int:
@@ -865,6 +1284,14 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     t0 = time.time()
     logs = cuda.build_all()
     build_s = time.time() - t0
+    phases, mark = {}, [time.time()]
+
+    def lap(name: str) -> None:
+        """Wall seconds of the phase that ends here."""
+        now = time.time()
+        phases[name] = now - mark[0]
+        mark[0] = now
+        print(json.dumps({"phase_s": {name: phases[name]}}), flush=True)
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln or "entry function" in ln]
              for k, v in logs.items()}
@@ -885,6 +1312,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     pairs, poses_gt, draws, prep_s = pairs_of(cfg, surface_pair, range(n_pairs))
     counts, *rest = drive("3DMatch", model, dev, pairs, draws)
     main_line = path_line("3DMatch", cfg, counts, *rest, prep_s, pairs[0])
+    lap("3DMatch")
 
     # ---- KITTI at full width --------------------------------------------
     kmodel = BufferModel(kcfg, seed=0).to(dev)
@@ -892,6 +1320,11 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         kcfg, lidar_pair, range(KITTI_SEED, KITTI_SEED + n_kitti))
     kcounts, *rest = drive("KITTI", kmodel, dev, kpairs, kdraws)
     kitti_line = path_line("KITTI", kcfg, kcounts, *rest, kprep_s, kpairs[0])
+    lap("KITTI")
+
+    # ---- the main path's first pair with the levels built on the card ---
+    levels = device_levels_path(dev, cfg, model, pairs[0], draws[0], main_line)
+    lap("3DMatch device levels")
 
     # ---- the exact unbanded path of slice 1 -----------------------------
     ucfg = unbanded(cfg)
@@ -908,6 +1341,8 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
                            draws[:2])
     sampled_line = path_line("3DMatch fused_desc=False", scfg, scounts, *rest,
                              prep_s, pairs[0])
+
+    lap("knn_band=0 and fused_desc=False")
 
     # ---- the first pair of each preset with every call recorded ---------
     res_k, inter_k, calls = recorded_run(model, dev, pairs[0], draws[0])
@@ -938,6 +1373,8 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     if int(fvalid.sum()) != min(K, int(elig0.sum())):
         raise RuntimeError("farthest_point_sample: wrong valid count")
 
+    lap("recorded runs and fps_single")
+
     # ---- stage-sequential training at full width -----------------------
     from buffer_tpu_torch.pipeline.train_forward import make_train_draws
     from buffer_tpu_torch.train.trainer import TrainBatch, eval_step
@@ -948,6 +1385,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     tgen = torch.Generator(device=dev).manual_seed(1)
     train = train_path(dev, cfg, batches, save_dir, tgen)
     tmodel = train["model"]
+    lap("3DMatch train")
 
     # ---- plain-path checks ----------------------------------------------
     checks = [plain_path_check("3DMatch", model, dev, pairs[0], draws[0],
@@ -959,9 +1397,21 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     tdraws = make_train_draws(cfg, tgen, dev)
     train_checks = [plain_train_check(st, tmodel, cfg, batches[0], tdraws, dev,
                                       save_dir) for st in ("Desc", "Ref")]
+    lap("plain-path checks")
+
+    # ---- the train entry over written trees, 3DMatch and KITTI ----------
+    train_entry = train_entry_paths(dev, tgen)
+    lap("train entry")
 
     # ---- the evaluation path through the test entry point ---------------
     evaluation = eval_path(dev, cfg, kcfg, save_dir)
+    lap("eval")
+    presets = presets_path(dev, evaluation.pop("roots"))
+    lap("presets")
+
+    # ---- train from scratch, then register (a reduced count) ------------
+    ttr = ttr_path(dev)
+    lap("train_then_register")
 
     # ---- the neighbour and ball calls of one (eval) training step -------
     from buffer_tpu_torch.ops import neighbors
@@ -1245,10 +1695,13 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     derived = {"sm_clock_mhz": clock / 1e6, "sms": SMS, "fp32_lanes": LANES,
                "kernels": floors}
     print(json.dumps({"issue_floor": derived}))
+    lap("kernels against plain versions")
 
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
+            "device_levels": levels, "train_entry": train_entry,
+            "presets": presets, "train_then_register": ttr,
             "eval": evaluation,
             "train": train["stages"], "train_launches": train["launches"],
             "plain_train_checks": train_checks,
@@ -1258,7 +1711,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "fps_single_launches": fcounts, "plain_path_checks": checks,
             "banded_calls": {"3DMatch": rows, "KITTI": krows},
             "banded_quality": quality, "exact_search_reference": reference,
-            "kernels": kernels, "issue_floor": derived,
+            "kernels": kernels, "issue_floor": derived, "phase_s": phases,
             "pose_gt": {"3DMatch": [T.tolist() for T in poses_gt],
                         "KITTI": [T.tolist() for T in kposes_gt]}}
 

@@ -35,10 +35,13 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("name", list(jconfig.PRESETS) + ["tiny"])
+@pytest.mark.parametrize("name", list(jconfig.PRESETS) + ["tiny", "small"])
 def test_config_copy_matches_reference(name):
-    j = jconfig.tiny_cfg() if name == "tiny" else jconfig.make_cfg(name)
-    t = tconfig.tiny_cfg() if name == "tiny" else tconfig.make_cfg(name)
+    plans = {"tiny": "tiny_cfg", "small": "small_cfg"}
+    if name in plans:
+        j, t = getattr(jconfig, plans[name])(), getattr(tconfig, plans[name])()
+    else:
+        j, t = jconfig.make_cfg(name), tconfig.make_cfg(name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert tconfig.unbanded(t).static.knn_band == 0
 

@@ -509,3 +509,44 @@ def test_test_entry_point_on_card(card, tmp_path):
                         "spt_pooled": 2}
     _, traj = metrics.read_trajectory(str(tmp_path / "log" / scene / "est.log"))
     assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,voxel,out_size", [(30720, 0.07, 10240),
+                                              (40000, 0.02, 3000)])
+def test_voxel_subsample_on_card_equals_cpu(card, n, voxel, out_size):
+    """The device voxel subsampling on the card bit for bit as on the CPU
+    (the sums run in sorted order, one thread a segment; the divisions take
+    a device tensor), with padding rows and, in the second case, an
+    overflowing ``out_size``."""
+    from buffer_tpu_torch.ops.subsample import voxel_subsample
+    rs = np.random.RandomState(9)
+    pts = torch.from_numpy(rs.uniform(-1.5, 2.5, (n, 3)).astype(np.float32))
+    valid = torch.from_numpy(rs.rand(n) > 0.2)
+    want = voxel_subsample(pts, valid, voxel, out_size)
+    got = voxel_subsample(pts.to(card), valid.to(card), voxel, out_size)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_device_levels_on_card_equal_host_levels(card):
+    """``device_levels`` of the full-width 3DMatch pair on the card: the
+    host-built levels (``prepare_pair``) as point sets within 1e-5 with
+    equal valid counts, and bit for bit the CPU's device levels."""
+    from buffer_tpu_torch.pipeline.pyramid import device_levels
+    cfg = threedmatch_cfg()
+    pair, _ = surface_pair(cfg, 0, "cpu")
+    got = device_levels(cfg, pair.sds.to(card), pair.sds_mask.to(card))
+    want = device_levels(cfg, pair.sds, pair.sds_mask)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    host = (pair.lvl1, pair.lvl1_mask, pair.lvl2, pair.lvl2_mask)
+    for lvl in (0, 2):
+        for b in range(2):
+            a = got[lvl][b][got[lvl + 1][b]].cpu()
+            h = host[lvl][b][host[lvl + 1][b]]
+            assert len(a) == len(h) > 0
+            d = torch.cdist(a.double(), h.double())
+            assert float(d.min(1).values.max()) < 1e-5
+            assert float(d.min(0).values.max()) < 1e-5

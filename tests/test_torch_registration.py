@@ -41,6 +41,9 @@ from buffer_tpu_torch.compat.from_jax import variables_to_state_dict
 from buffer_tpu_torch.data.preprocess import prepare_pair
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.ops import neighbors
+from buffer_tpu_torch.models.point_learner import Pyramid
+from buffer_tpu_torch.pipeline import registration as tregistration
+from buffer_tpu_torch.pipeline.pyramid import build_pyramid_and_normals
 from buffer_tpu_torch.pipeline.registration import Draws, register_pair
 
 torch.set_num_threads(1)
@@ -124,15 +127,10 @@ def _tpu_extract_patches(key, pts, pts_valid, kpts, des_r, patch_sample):
     return patches.at[:, -1, :].set(kpts)
 
 
-def _run_both(monkeypatch, jcfg, tcfg, raw, tgt):
-    """register_pair of both packages on one pair: same inputs, weights and
-    draws; returns ((res, inter) of the port, (res, inter) of JAX)."""
-    monkeypatch.setattr(gp.pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-    monkeypatch.setattr(jpe, "fused_point_features", _fused_kernel_semantics)
-    if not jcfg.static.fused_desc:
-        monkeypatch.setattr(jpe, "extract_patches", _tpu_extract_patches)
-    _tpu_dispatch(monkeypatch)
+def _inputs_both(jcfg, tcfg, raw, tgt, device_levels=False):
+    """prepare_pair of both packages from one seed (equal arrays); with
+    ``device_levels`` the host-built levels are dropped, so that each
+    pyramid builds them on its device."""
     j_inputs = jpre.prepare_pair(jcfg, raw.copy(), tgt.copy(),
                                  rs=np.random.RandomState(3),
                                  already_downsampled=True)
@@ -141,6 +139,24 @@ def _run_both(monkeypatch, jcfg, tcfg, raw, tgt):
                             already_downsampled=True, device="cpu")
     for g, w in zip(t_inputs, j_inputs):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if device_levels:
+        none = dict(lvl1=None, lvl1_mask=None, lvl2=None, lvl2_mask=None)
+        j_inputs, t_inputs = j_inputs._replace(**none), t_inputs._replace(**none)
+    return j_inputs, t_inputs
+
+
+def _run_both(monkeypatch, jcfg, tcfg, raw, tgt, device_levels=False,
+              pinned=False):
+    """register_pair of both packages on one pair: same inputs, weights and
+    draws; returns ((res, inter) of the port, (res, inter) of JAX), and with
+    ``pinned`` also (res, inter) of the port run on JAX's pyramid."""
+    monkeypatch.setattr(gp.pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(jpe, "fused_point_features", _fused_kernel_semantics)
+    if not jcfg.static.fused_desc:
+        monkeypatch.setattr(jpe, "extract_patches", _tpu_extract_patches)
+    _tpu_dispatch(monkeypatch)
+    j_inputs, t_inputs = _inputs_both(jcfg, tcfg, raw, tgt, device_levels)
 
     jm = JModel(jcfg)
     variables = jax.jit(jm.init)(jax.random.PRNGKey(0))
@@ -151,28 +167,70 @@ def _run_both(monkeypatch, jcfg, tcfg, raw, tgt):
     key = jax.random.PRNGKey(7)
     res_j, inter_j = jax.jit(lambda v, i, k: j_register_pair(
         jm, v, i, k, return_intermediates=True))(variables, j_inputs, key)
-    res, inter = register_pair(model, t_inputs, _jax_draws(key, jcfg),
-                               device="cpu", return_intermediates=True)
-    return (res, inter), (res_j, inter_j)
+    run = lambda: register_pair(model, t_inputs, _jax_draws(key, jcfg),
+                                device="cpu", return_intermediates=True)
+    res, inter = run()
+    if not pinned:
+        return (res, inter), (res_j, inter_j)
+    pj = inter_j["pyramid"]
+    conv = lambda x: (tuple(torch.from_numpy(np.array(a)) for a in x)
+                      if isinstance(x, tuple) else torch.from_numpy(np.array(x)))
+    pyr = Pyramid(*(conv(getattr(pj, f)) for f in Pyramid._fields))
+    with monkeypatch.context() as m:
+        m.setattr(tregistration, "build_pyramid_and_normals",
+                  lambda *a, **k: pyr)
+        return (res, inter), (res_j, inter_j), run()
 
 
-def _assert_tables_equal(pt, pj):
+def _radius0(cfg):
+    return cfg.data.voxel_size_0 * cfg.point.conv_radius
+
+
+def _assert_levels_equal(pt, pj):
+    """The pyramid's points and masks of every level equal (the device
+    levels bit for bit: both sum each voxel in sorted order in fp32)."""
+    for lvl in range(3):
+        np.testing.assert_array_equal(pt.masks[lvl].numpy(),
+                                      np.asarray(pj.masks[lvl]))
+        np.testing.assert_array_equal(pt.points[lvl].numpy(),
+                                      np.asarray(pj.points[lvl]))
+
+
+def _assert_tables_equal(pt, pj, r0=None):
     """Pyramid tables equal: upsample indices exactly; neighbour and pool
-    lists as sets where valid (fp32 ties may swap the order)."""
+    lists as sets where valid (fp32 ties may swap the order).  With the
+    level-0 radius ``r0``, an entry valid in one package only is allowed
+    where its float64 distance lies within 1e-5 relative of the radius: the
+    in-radius test within rounding of the radius (ROADMAP section 3); the
+    sets are compared without such entries.  Returns their number."""
     for lvl in range(2):
         np.testing.assert_array_equal(pt.upsamples[lvl].numpy(),
                                       np.asarray(pj.upsamples[lvl]))
         np.testing.assert_array_equal(pt.upsample_valid[lvl].numpy(),
                                       np.asarray(pj.upsample_valid[lvl]))
-    for got, want, got_v, want_v in (
-            list(zip(pt.neighbors, pj.neighbors, pt.neighbor_valid,
-                     pj.neighbor_valid))
-            + list(zip(pt.pools, pj.pools, pt.pool_valid, pj.pool_valid))):
-        v = np.asarray(want_v)
-        np.testing.assert_array_equal(got_v.numpy(), v)
-        np.testing.assert_array_equal(
-            np.sort(np.where(v, got.numpy(), -1), -1),
-            np.sort(np.where(v, np.asarray(want), -1), -1))
+    tables = ([(pt.neighbors[l], pj.neighbors[l], pt.neighbor_valid[l],
+                pj.neighbor_valid[l], pt.points[l], pt.points[l], l)
+               for l in range(3)]
+              + [(pt.pools[l], pj.pools[l], pt.pool_valid[l], pj.pool_valid[l],
+                  pt.points[l + 1], pt.points[l], l) for l in range(2)])
+    flips = 0
+    for got, want, got_v, want_v, q, s, lvl in tables:
+        got, want = got.numpy(), np.asarray(want)
+        gv, v = got_v.numpy(), np.asarray(want_v)
+        if r0 is not None and (gv != v).any():
+            r2 = (r0 * 2 ** lvl) ** 2
+            for b, i, k in np.argwhere(gv != v):
+                j = got[b, i, k] if gv[b, i, k] else want[b, i, k]
+                d2 = np.sum((q[b, i].double().numpy()
+                             - s[b, j].double().numpy()) ** 2)
+                assert abs(d2 - r2) <= 1e-5 * r2, (lvl, b, i, k, d2, r2)
+                flips += 1
+            both = gv & v
+            gv, v = both, both
+        np.testing.assert_array_equal(gv, v)
+        np.testing.assert_array_equal(np.sort(np.where(v, got, -1), -1),
+                                      np.sort(np.where(v, want, -1), -1))
+    return flips
 
 
 def test_register_pair_matches_jax(monkeypatch):
@@ -189,14 +247,22 @@ def test_register_pair_sampled_front_matches_jax(monkeypatch):
     _matches_jax(monkeypatch, off(jconfig.tiny_cfg()), off(tconfig.tiny_cfg()))
 
 
-def _matches_jax(monkeypatch, jcfg, tcfg):
+def _matches_jax(monkeypatch, jcfg, tcfg, device_levels=False):
     # a small shift keeps matched keypoints close under random weights, so
     # RANSAC and IRLS find inliers and the pose comparison is not trivial
     raw = _surface(900, 0)
     tgt = raw + np.float32([0.02, -0.01, 0.015])
-    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt)
+    runs = _run_both(monkeypatch, jcfg, tcfg, raw, tgt, device_levels,
+                     pinned=device_levels)
+    (res, inter), (res_j, inter_j) = runs[:2]
 
-    _assert_tables_equal(inter["pyramid"], inter_j["pyramid"])
+    _assert_levels_equal(inter["pyramid"], inter_j["pyramid"])
+    if _assert_tables_equal(inter["pyramid"], inter_j["pyramid"],
+                            _radius0(tcfg) if device_levels else None):
+        # a neighbour at the radius in one package only moves the saliency
+        # and axes of every point (and so the descriptors): from the pyramid
+        # on, the port is then held on JAX's tables
+        res, inter = runs[2]
     # saliency to fp32 reordering; keypoint indices exactly equal
     np.testing.assert_allclose(inter["score"].numpy(), np.asarray(inter_j["score"]),
                                rtol=1e-4, atol=1e-5)
@@ -224,6 +290,11 @@ def _matches_jax(monkeypatch, jcfg, tcfg):
                                rtol=1e-3, atol=1e-3)
 
 
+def _band0(mod):
+    c = mod.tiny_cfg()
+    return c.replace(static=dataclasses.replace(c.static, knn_band=0))
+
+
 def _banded_plan(mod):
     c = mod.tiny_cfg()
     return c.replace(static=dataclasses.replace(
@@ -235,21 +306,78 @@ def test_register_pair_banded_matches_jax(monkeypatch):
     """A plan where the band is live: the level-0 and level-1 kNN, both
     pools and the l0 -> l1 upsample take the banded kernels (level 0 has
     32 grid rows against a 16-row window), level 2 the exact searches."""
+    _banded_matches_jax(monkeypatch)
+
+
+def _banded_matches_jax(monkeypatch, device_levels=False):
     jcfg, tcfg = _banded_plan(jconfig), _banded_plan(tconfig)
     assert [neighbors.knn_route(S, 512) for S in (4096, 2048, 512)] == [
         "banded", "banded", "dense"]
     raw = _surface(4000, 1, extent=1.0)
     tgt = raw + np.float32([0.02, -0.01, 0.015])
-    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt)
+    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt,
+                                               device_levels)
     pt = inter["pyramid"]
     assert int(pt.masks[0][0].sum()) > 2048
-    _assert_tables_equal(pt, inter_j["pyramid"])
+    _assert_levels_equal(pt, inter_j["pyramid"])
+    _assert_tables_equal(pt, inter_j["pyramid"],
+                         _radius0(tcfg) if device_levels else None)
     np.testing.assert_array_equal(inter["kidx"].numpy(), np.asarray(inter_j["kidx"]))
     assert res.kpt_valid.any()
     assert int(res.num_mutual) == int(res_j.num_mutual) > 0
     assert int(res.num_inliers) == int(res_j.num_inliers)
     np.testing.assert_allclose(res.pose.numpy(), np.asarray(res_j.pose),
                                rtol=1e-3, atol=1e-3)
+
+
+def test_register_pair_device_levels_matches_jax(monkeypatch):
+    """``lvl1 = None``: both pyramids voxel-subsample levels 1 and 2 on the
+    device, in voxel-key order, at the tiny plan with the exact searches
+    (``knn_band = 0``); the tolerances of the host-levels test."""
+    _matches_jax(monkeypatch, _band0(jconfig), _band0(tconfig),
+                 device_levels=True)
+
+
+def test_register_pair_device_levels_banded_matches_jax(monkeypatch):
+    """``lvl1 = None`` on the banded plan: the banded searches run over the
+    device levels' voxel-key rank order, as in the reference."""
+    _banded_matches_jax(monkeypatch, device_levels=True)
+
+
+@pytest.mark.parametrize("plan", ["knn_band=0", "banded"])
+def test_device_levels_pyramid_matches_jax(monkeypatch, plan):
+    """``build_pyramid_and_normals(levels=None)`` of both packages on one
+    pair: the levels bit for bit, the tables as sets (the host-levels
+    allowances), the normals to fp32 reordering; the device levels hold the
+    host levels' points (``prepare_pair``) within 1e-5 as sets."""
+    if plan == "banded":
+        jcfg, tcfg = _banded_plan(jconfig), _banded_plan(tconfig)
+        raw = _surface(4000, 1, extent=1.0)
+    else:
+        jcfg, tcfg = _band0(jconfig), _band0(tconfig)
+        raw = _surface(420, 0, extent=0.4)
+    monkeypatch.setattr(gp.pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    _tpu_dispatch(monkeypatch)
+    j_in, t_in = _inputs_both(jcfg, tcfg, raw, raw + np.float32(0.02))
+    want = jax.jit(lambda p, m: jpyr.build_pyramid_and_normals(jcfg, p, m))(
+        j_in.sds, j_in.sds_mask)
+    got = build_pyramid_and_normals(tcfg, t_in.sds, t_in.sds_mask)
+    _assert_levels_equal(got, want)
+    _assert_tables_equal(got, want, _radius0(tcfg))
+    np.testing.assert_allclose(got.features.numpy(), np.asarray(want.features),
+                               rtol=1e-4, atol=1e-5)
+    host = ((t_in.lvl1, t_in.lvl1_mask), (t_in.lvl2, t_in.lvl2_mask))
+    for lvl, (pts, msk) in enumerate(host, start=1):
+        # no level overflows its plan, so both hold every voxel
+        assert not msk.all(-1).any()
+        for b in range(2):
+            dev_pts = got.points[lvl][b][got.masks[lvl][b]].numpy()
+            host_pts = pts[b][msk[b]].numpy()
+            assert len(dev_pts) == len(host_pts) > 0
+            order = lambda a: a[np.lexsort(np.round(a, 4).T[::-1])]
+            np.testing.assert_allclose(order(dev_pts), order(host_pts),
+                                       rtol=0, atol=1e-5)
 
 
 def test_register_pair_kitti_matches_jax(monkeypatch):
@@ -269,6 +397,37 @@ def test_register_pair_kitti_matches_jax(monkeypatch):
     eye = np.broadcast_to(np.eye(3, dtype=np.float32), inter["s_R"].shape)
     np.testing.assert_array_equal(inter["s_R"].numpy(), eye)
     assert int(res.num_mutual) == int(res_j.num_mutual) > 0
+    assert int(res.num_inliers) == int(res_j.num_inliers)
+    np.testing.assert_allclose(res.pose.numpy(), np.asarray(res_j.pose),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["3DLoMatch", "ThreeD2ETH", "ThreeD2KITTI",
+                                  "KITTI2ThreeD", "KITTI2ETH"])
+def test_register_pair_presets_match_jax(monkeypatch, name):
+    """The five other presets at ``shrink_static``: the Ref network's
+    neighbourhood scaling by ``test.scale`` (5 for ThreeD2ETH, 0.1167 for
+    KITTI2ThreeD), ``keypts_th = 0`` with IRLS at the 3DLoMatch threshold
+    (KITTI2ThreeD), the ETH and KITTI patch frames; each on a surface
+    scaled to its voxel size, with the tolerances of the 3DMatch test."""
+    jcfg = jconfig.shrink_static(jconfig.make_cfg(name))
+    tcfg = tconfig.shrink_static(tconfig.make_cfg(name))
+    scale = tcfg.data.voxel_size_0 / 0.035
+    raw = _surface(900, 3, extent=0.6 * scale)
+    tgt = raw + np.float32([0.02, -0.01, 0.015]) * np.float32(scale)
+    (res, inter), (res_j, inter_j) = _run_both(monkeypatch, jcfg, tcfg, raw, tgt)
+    _assert_tables_equal(inter["pyramid"], inter_j["pyramid"])
+    np.testing.assert_allclose(inter["score"].numpy(), np.asarray(inter_j["score"]),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(inter["kidx"].numpy(), np.asarray(inter_j["kidx"]))
+    np.testing.assert_array_equal(res.kpt_valid.numpy(), np.asarray(res_j.kpt_valid))
+    assert res.kpt_valid.any()
+    for field in ("s_des", "t_des"):
+        err = np.abs(inter[field].numpy() - np.asarray(inter_j[field])).max(-1)
+        assert (err > 1e-4).mean() <= 0.05 and err.max() < 0.05, (field, err.max())
+    assert int(res.num_mutual) == int(res_j.num_mutual) > 0
+    np.testing.assert_array_equal(inter["vote_inliers"].numpy(),
+                                  np.asarray(inter_j["vote_inliers"]))
     assert int(res.num_inliers) == int(res_j.num_inliers)
     np.testing.assert_allclose(res.pose.numpy(), np.asarray(res_j.pose),
                                rtol=1e-3, atol=1e-3)
