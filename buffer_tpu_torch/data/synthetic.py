@@ -298,18 +298,32 @@ def lidar_pair(cfg: Config, seed: int, device=None):
     the 5 cm downsample, 1 cm noise) of one outdoor scene -- undulating
     ground, building facades along a road, poles, parked cars -- from sensor
     origins 10 m apart, related by a yaw plus a small tilt (KITTI's >= 10 m
-    odometry pairs).  Returns (PairInputs on ``device``, T [4, 4]) with T
-    mapping the source sensor frame onto the target's."""
-    rs = np.random.RandomState(seed)
+    odometry pairs): :func:`make_lidar_pair` drawing from
+    ``RandomState(seed)``.  Returns (PairInputs on ``device``, T [4, 4])
+    with T mapping the source sensor frame onto the target's."""
+    return make_lidar_pair(cfg, np.random.RandomState(seed), device=device)
+
+
+def make_lidar_pair(cfg: Config, rs: np.random.RandomState, dist=10.0,
+                    noise=0.01, yaw=None, device=None):
+    """Two LiDAR views of one :func:`lidar_scene` from sensor origins
+    ``dist`` metres apart along the road, each point with Gaussian
+    ``noise`` (m), the target rotated by ``yaw`` (drawn uniformly when
+    None) and a small tilt: SO(2)-dominant motion, as KITTI's z-only
+    augmentation (``KITTI/dataset.py:53-70, 132-141``).  Every draw comes
+    from ``rs``, in the order of ``buffer_tpu/data/synthetic.py:298-367``.
+    Returns (PairInputs on ``device``, T [4, 4]) with T mapping the source
+    sensor frame onto the target's."""
     scene = lidar_scene(rs)
     o0 = np.array([0.0, 0.0, 1.73], np.float32)
     heading = rs.uniform(-0.2, 0.2)
-    o1 = o0 + np.array([10.0 * np.cos(heading), 10.0 * np.sin(heading),
+    o1 = o0 + np.array([dist * np.cos(heading), dist * np.sin(heading),
                         rs.uniform(-0.3, 0.3)], np.float32)
-    src = _lidar_view(rs, o0, scene)
-    tgt_raw = _lidar_view(rs, o1, scene)
+    src = _lidar_view(rs, o0, scene, noise=noise)
+    tgt_raw = _lidar_view(rs, o1, scene, noise=noise)
 
-    yaw = rs.uniform(0, 2 * np.pi)
+    if yaw is None:
+        yaw = rs.uniform(0, 2 * np.pi)
     cy, sy = np.cos(yaw), np.sin(yaw)
     Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]], np.float32)
     tilt = rs.uniform(-0.02, 0.02, 2)

@@ -12,6 +12,17 @@ reference ``ThreeDMatch/test.py``, ``KITTI/test.py``,
 ``--weights`` this package's own per-stage checkpoints
 (``<stage>/best.pth`` written by ``train.checkpoint``).  Runs on the CUDA
 card unless ``--device cpu`` is given.
+
+Started by ``torchrun`` (``WORLD_SIZE`` > 1), every rank joins the process
+group and ``run_eval`` registers the pairs one a rank (data parallelism
+over pairs), each rank on card ``LOCAL_RANK % device_count``:
+
+    torchrun --nproc_per_node 8 -m buffer_tpu_torch.scripts.test \
+        --config 3DMatch --data-root data/ThreeDMatch --torch-weights <dir>
+
+The collective backend is NCCL on cards and gloo with ``--device cpu``;
+``--dist-backend`` names another (gloo for ranks that share one card,
+which NCCL refuses).  Only rank 0 prints the summary.
 """
 
 from __future__ import annotations
@@ -19,6 +30,8 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Dict, Optional, Sequence
+
+import torch
 
 STAGES = ("Ref", "Desc", "Keypt", "Inlier")
 
@@ -36,6 +49,25 @@ def make_dataset(cfg):
         from buffer_tpu_torch.data.eth import ETHDataset
         return ETHDataset("test", cfg)
     raise ValueError(f"no loader for dataset {name!r}")
+
+
+def load_model(cfg, weights: Optional[str], torch_weights: Optional[str],
+               device):
+    """A model of ``cfg`` on ``device`` from a reference snapshot directory
+    (``torch_weights``) or this package's per-stage checkpoints
+    (``weights``), each ``<dir>/<stage>/best.pth``; a missing file
+    raises."""
+    if torch_weights:
+        from buffer_tpu_torch.compat.torch_convert import load_reference_model
+        return load_reference_model(
+            cfg, {s: os.path.join(torch_weights, s, "best.pth")
+                  for s in STAGES}, device)
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.train.checkpoint import merge_stage_checkpoints
+    model = BufferModel(cfg)
+    model.load_state_dict(merge_stage_checkpoints(
+        {s: os.path.join(weights, s, "best.pth") for s in STAGES}))
+    return model.to(device)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
@@ -57,6 +89,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")
+    ap.add_argument("--dist-backend", default=None,
+                    help="collective backend under torchrun (default: nccl "
+                         "on cards, gloo on the CPU)")
     args = ap.parse_args(argv)
     if not (args.weights or args.torch_weights):
         ap.error("need --weights or --torch-weights")
@@ -66,8 +101,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     from buffer_tpu_torch import resolve_device
     from buffer_tpu_torch.config import make_cfg, shrink_static
     from buffer_tpu_torch.eval.harness import run_eval
+    from buffer_tpu_torch.utils.dist import init_dp, rank_device
 
-    dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        dev = rank_device(args.device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        init_dp(args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                "env://", int(os.environ["RANK"]), world)
+    else:
+        dev = resolve_device(args.device)
     cfg = make_cfg(args.config).with_stage("test")
     if args.tiny:
         cfg = shrink_static(cfg)
@@ -75,24 +119,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         cfg = cfg.replace(data=dataclasses.replace(cfg.data,
                                                    root=args.data_root))
 
-    if args.torch_weights:
-        from buffer_tpu_torch.compat.torch_convert import load_reference_model
-        model = load_reference_model(
-            cfg, {s: os.path.join(args.torch_weights, s, "best.pth")
-                  for s in STAGES}, dev)
-    else:
-        from buffer_tpu_torch.models.composite import BufferModel
-        from buffer_tpu_torch.train.checkpoint import merge_stage_checkpoints
-        model = BufferModel(cfg)
-        model.load_state_dict(merge_stage_checkpoints(
-            {s: os.path.join(args.weights, s, "best.pth") for s in STAGES}))
-        model = model.to(dev)
-
+    model = load_model(cfg, args.weights, args.torch_weights, dev)
     log_dir = args.log_dir or f"log_{cfg.data.dataset}_{args.config}"
     out = run_eval(cfg, model, make_dataset(cfg), log_dir=log_dir,
                    max_pairs=args.max_pairs, device=dev)
-    print({k: round(v, 4) if isinstance(v, float) else v
-           for k, v in out.items()})
+    if world > 1:
+        torch.distributed.destroy_process_group()
+    if world == 1 or int(os.environ["RANK"]) == 0:
+        print({k: round(v, 4) if isinstance(v, float) else v
+               for k, v in out.items()})
     return out
 
 

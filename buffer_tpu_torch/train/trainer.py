@@ -1,5 +1,4 @@
-"""Stage-sequential trainer (counterpart of ``buffer_tpu/train/trainer.py``,
-without its data-parallel step).
+"""Stage-sequential trainer (counterpart of ``buffer_tpu/train/trainer.py``).
 
 Port of the reference Trainer (ThreeDMatch/trainer.py) and stage loop
 (ThreeDMatch/train.py:22-108): one :class:`Trainer` per stage, Ref -> Desc
@@ -10,6 +9,11 @@ adam(lr))``), the learning rate decayed by ``lr_decay`` every
 ``scheduler_interval`` epochs, a step skipped whole when any gradient is
 not finite (trainer.py:203-209), validation every epoch, and the best
 checkpoint kept by the stage's metric (trainer.py:70-87).
+
+:func:`make_dp_train_step` is the data-parallel step over fragment pairs,
+one pair a rank of a ``torch.distributed`` group (``utils/dist.py``);
+:func:`mean_train_step` is the same step in one process, the reference it
+is held to.
 """
 
 from __future__ import annotations
@@ -17,9 +21,10 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Callable, Dict, Iterable, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from buffer_tpu_torch import resolve_device
 from buffer_tpu_torch.config import Config
@@ -29,6 +34,7 @@ from buffer_tpu_torch.pipeline.train_forward import (TrainDraws,
                                                      make_train_draws,
                                                      stage_loss)
 from buffer_tpu_torch.train import checkpoint
+from buffer_tpu_torch.utils.dist import group_size, group_src
 from buffer_tpu_torch.utils.logging import MetricLogger
 
 BEST_METRIC = {"Ref": "ref_loss", "Desc": "desc_loss",
@@ -63,21 +69,130 @@ def train_step(model: BufferModel, optimizer: torch.optim.Optimizer,
     not finite, neither the parameters nor Adam's state move
     (``stats["grad_finite"]`` = 0); the running statistics keep the
     forward's update either way."""
+    loss, stats, grads = _loss_and_grads(model, optimizer, stage, batch,
+                                         draws, det_margin, device)
+    stats["grad_finite"] = _finite_step(optimizer, grads)
+    return loss, stats
+
+
+def _stage_params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def _running_stats(model: BufferModel, stage: str) -> List[torch.Tensor]:
+    """The batch norms' running means and variances of ``stage``."""
+    return [b for name, b in getattr(model, stage).named_buffers()
+            if name.endswith(("running_mean", "running_var"))]
+
+
+def _finite_step(optimizer: torch.optim.Optimizer,
+                 grads: List[torch.Tensor]) -> torch.Tensor:
+    """Sets the stage's gradients to ``grads`` and steps unless one of them
+    is not finite; returns the finite flag (float32)."""
+    for p, g in zip(_stage_params(optimizer), grads):
+        p.grad = g
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    if bool(finite):
+        optimizer.step()
+    return finite.to(torch.float32)
+
+
+def _loss_and_grads(model, optimizer, stage, batch, draws, det_margin, dev):
+    """Loss, stats and the stage's gradients (zero where the loss does not
+    reach a parameter) of one pair."""
     optimizer.zero_grad(set_to_none=True)
     loss, stats = stage_loss(model, stage, batch.inputs, batch.relt_pose,
                              draws, train=True, det_margin=det_margin,
-                             device=device)
+                             device=dev)
     loss.backward()
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
-    if bool(finite):
-        optimizer.step()
-    stats = {k: v.detach() for k, v in stats.items()}
-    stats["grad_finite"] = finite.to(torch.float32)
-    return loss.detach(), stats
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in _stage_params(optimizer)]
+    return loss.detach(), {k: v.detach() for k, v in stats.items()}, grads
+
+
+def make_dp_train_step(model: BufferModel, optimizer: torch.optim.Optimizer,
+                       stage: str, group=None, det_margin: float = 1.05,
+                       device=None):
+    """The data-parallel training step (``buffer_tpu/train/trainer.py:109-163``):
+    returns ``step(batch, draws) -> (loss, stats)`` that trains ``stage`` on
+    this rank's pair of ``group`` (default: the default group), every rank
+    calling it once a step.
+
+    Making the step broadcasts every parameter and buffer of ``model`` from
+    the group's rank 0, so the replicas start equal (Adam's state starts
+    empty on every rank).  A step computes this rank's loss and gradients,
+    zero where the loss does not reach a parameter, then all-reduces them,
+    in one flat buffer in parameter order, to their mean over ranks.  The
+    finite check reads the reduced gradients, so one bad rank skips the step
+    on every rank: neither the parameters nor Adam's state move and
+    ``grad_finite`` is 0 everywhere.  The running statistics that this
+    rank's forward moved (the active stage's; frozen stages run in eval
+    mode) are all-reduced to their mean, the update with the mean batch
+    statistic, as JAX averages its updates.  ``loss`` and ``stats`` are
+    their means over ranks."""
+    dev = resolve_device(device)
+    world = group_size(group)
+    src = group_src(group)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            dist.broadcast(t, src, group=group)
+    running = _running_stats(model, stage)
+
+    def mean(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
+        flat /= world
+        return list(torch.split(flat, [t.numel() for t in ts]))
+
+    def step(batch: TrainBatch, draws: TrainDraws):
+        loss, stats, grads = _loss_and_grads(model, optimizer, stage, batch,
+                                             draws, det_margin, dev)
+        grads = [m.view_as(g) for m, g in zip(mean(grads), grads)]
+        finite = _finite_step(optimizer, grads)
+        if running:
+            with torch.no_grad():
+                for b, m in zip(running, mean(running)):
+                    b.copy_(m.view_as(b))
+        keys = list(stats)
+        means = mean([loss.reshape(1)] + [stats[k].reshape(1) for k in keys])
+        stats = {k: m[0] for k, m in zip(keys, means[1:])}
+        stats["grad_finite"] = finite
+        return means[0][0], stats
+
+    return step
+
+
+def mean_train_step(model: BufferModel, optimizer: torch.optim.Optimizer,
+                    stage: str, batches, draws, det_margin: float = 1.05,
+                    device=None):
+    """:func:`make_dp_train_step`'s step in one process over the pairs
+    ``batches`` with ``draws`` (one each): the mean of the per-pair
+    gradients, the mean of the per-pair running-statistic updates (each pair
+    from the same statistics), and the step skipped whole when a mean
+    gradient is not finite.  Returns (mean loss, mean stats)."""
+    dev = resolve_device(device)
+    running = _running_stats(model, stage)
+    buffers = list(getattr(model, stage).buffers())
+    start = [b.clone() for b in buffers]
+    runs = []
+    for batch, dr in zip(batches, draws):
+        with torch.no_grad():
+            for b, s in zip(buffers, start):
+                b.copy_(s)
+        loss, stats, grads = _loss_and_grads(model, optimizer, stage, batch,
+                                             dr, det_margin, dev)
+        runs.append((loss, stats, [g.clone() for g in grads],
+                     [b.clone() for b in running]))
+    n = len(runs)
+    mean = lambda ts: torch.stack(ts).sum(0) / n
+    grads = [mean([r[2][i] for r in runs]) for i in range(len(runs[0][2]))]
+    finite = _finite_step(optimizer, grads)
+    with torch.no_grad():
+        for i, b in enumerate(running):
+            b.copy_(mean([r[3][i] for r in runs]))
+    stats = {k: mean([r[1][k] for r in runs]) for k in runs[0][1]}
+    stats["grad_finite"] = finite
+    return mean([r[0] for r in runs]), stats
 
 
 def eval_step(model: BufferModel, stage: str, batch: TrainBatch,

@@ -6,9 +6,10 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives eleven paths, each with every kernel launch counter set to 0 just
-   before it and read just after; every kernel of a path must have run on
-   every pair (or step) of it, as often as the path's table says:
+2. Drives sixteen paths, each with every kernel launch counter set to 0
+   just before it and read just after (in each rank's own process for the
+   data-parallel ones); every kernel of a path must have run on every pair
+   (or step) of it, as often as the path's table says:
    * the main path: ``register_pair`` on the shipped 3DMatch preset
      (``knn_band = 4096``) at full width -- 30720/10240/3072 pyramid points,
      65536 raw points, 1500 keypoints, 512-point patches, 1024 RANSAC
@@ -72,6 +73,31 @@
      pairs, 1 epoch, 4 held-out pairs (a plumbing gate, no recall bar):
      every held-out pair's launches as small_cfg's table, the record
      written, recall and diagnosis finite.
+   * "dp register 3DMatch": ``make_dp_register`` over the main path's 3
+     pairs and draws with ranks started as fresh interpreters
+     (``utils/dist.launch``): world 2 on the one card over gloo (NCCL
+     refuses two ranks on a device), 2 rounds, the second padded; world 1
+     over gloo; world 1 over NCCL.  Each rank's launches around each pair
+     as the main path's table; every pose and mutual count bit-equal to
+     the main path's one-process ``register_pair`` and equal on every
+     rank; pairs/s at world 1 and 2 (``utils/dp_scaling.measure``).
+   * "dp train 3DMatch": ``make_dp_train_step`` at world 2 (gloo) for Ref
+     and Desc on the main path's first 2 pairs, a warm-up step and a step
+     each, under deterministic algorithms: parameters bit-equal across
+     ranks and within 1e-6 of one process's step on the mean gradient
+     (loss 1e-5), running statistics the mean of the one-pair updates,
+     only the active stage moves, every step's launches as ``TRAIN_STEP``;
+     ms/step and peak memory a rank.
+   * "dp eval 3DMatch": the test entry point as 2 ranks with the
+     ``torchrun`` variables (``--dist-backend gloo``) over the eval path's
+     3DMatch tree and snapshot: recall, TE, RE, pairs and est.log equal
+     the eval path's one-process run.
+   * "synthetic eval 3DMatch / KITTI": ``scripts.synthetic_eval.main`` with
+     the eval path's snapshots over 2 + 2 rooms, 2 KITTI scenes and one
+     room with ``--exact``: the GT cross-check's gates, every pair's
+     launches, the record against the per-pair lines; ms/pair.
+   * "calibrate": ``scripts.calibrate.main`` over the eval 3DMatch tree
+     (host work), its suggestions beside the shipped preset's caps.
    Prints each phase's wall seconds (``phase_s``), ms/pair and a per-stage
    breakdown (CUDA events) of each preset,
    and ms/step (host clock around a synchronized step) and peak memory
@@ -211,6 +237,21 @@ TRAIN_ENTRY_STEPS = 3
 # train_then_register at a reduced count (a plumbing gate): pairs, epochs,
 # held-out pairs
 TTR_ARGS = ("--train-pairs", "8", "--epochs", "1", "--eval-pairs", "4")
+# the data-parallel paths: timed rounds (after warm-up rounds) of the
+# pairs/s figure, training steps a stage (the first a warm-up), and the
+# launcher's time limit a launch
+DP_ITERS, DP_WARMUP = 6, 2
+# (name, world, backend, pairs, timed rounds) of "dp register 3DMatch":
+# both ranks of world 2 share the card, which NCCL refuses, so gloo;
+# NCCL's path at world 1
+DP_REGISTER_RUNS = (("world 2 gloo", 2, "gloo", 3, DP_ITERS),
+                    ("world 1 gloo", 1, "gloo", 1, DP_ITERS),
+                    ("world 1 nccl", 1, "nccl", 3, 0))
+DP_TRAIN_STEPS = 2
+DP_TIMEOUT = 300.0
+# the synthetic evaluation's exact stack: unbanded search (the exact 1-NN
+# for both upsamples) and the sampled descriptor front
+SYNTH_EXACT_PAIR = {"nearest": 2, "fps": 1, "ball_sample_points": 1}
 
 
 def card_line() -> str:
@@ -1246,6 +1287,272 @@ def device_levels_path(dev, cfg, model, pair, draws, host_line) -> dict:
     return out
 
 
+def _cpu(nt):
+    """A named tuple of tensors with each on the CPU (payloads of ranks)."""
+    return type(nt)(*(None if t is None else t.cpu() for t in nt))
+
+
+def dp_register_path(dev, cfg, model, pairs, draws, results) -> dict:
+    """``make_dp_register`` over the main path's pairs and draws: world 2,
+    both ranks on the card (gloo), 2 rounds (the second padded), then timed
+    rounds; world 1 (gloo), timed; world 1 under NCCL, one round a pair.
+    Every rank's launches around each pair as the main path's table; every
+    gathered pose and mutual count bit-equal to the main path's one-process
+    ``register_pair`` and equal on every rank.  Prints pairs/s at world 1
+    and 2 (``utils/dp_scaling.measure``)."""
+    import torch
+    from buffer_tpu_torch.utils import dp_scaling
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    pairs, draws = [_cpu(p) for p in pairs], [_cpu(d) for d in draws]
+    runs = {}
+    for name, world, backend, n, iters in DP_REGISTER_RUNS:
+        t0 = time.time()
+        ranks = dp_scaling.measure(cfg, state, pairs[:n], draws[:n], world,
+                                   backend, dev, iters=iters, warmup=DP_WARMUP,
+                                   timeout=DP_TIMEOUT, threads=cpu_threads(dev))
+        for r in ranks:
+            for rose in r["launches"]:
+                check_launches("3DMatch", rose)
+            for i in range(n):
+                if (not torch.equal(r["pose"][i], results[i].pose.cpu())
+                        or int(r["num_mutual"][i]) != int(results[i].num_mutual)):
+                    raise RuntimeError(f"dp register {name}: rank {r['rank']}'s "
+                                       f"pair {i} differs from one process")
+        line = {"path": "dp register 3DMatch", "run": name, "world": world,
+                "backend": backend, "pairs": n, "wall_s": time.time() - t0,
+                "pairs_per_s": ranks[0]["pairs_per_s"],
+                "round_ms": [r["round_ms"] for r in ranks],
+                "peak_mem_bytes": [r.get("peak_mem_bytes") for r in ranks],
+                "launches_per_pair": {k: v for k, v in
+                                      ranks[0]["launches"][0].items() if v}}
+        print(json.dumps(line))
+        runs[name] = line
+    w1, w2 = runs["world 1 gloo"]["pairs_per_s"], runs["world 2 gloo"]["pairs_per_s"]
+    scaling = {"pairs_per_s": {"1": w1, "2": w2}, "speedup_2": w2 / w1,
+               "iters": DP_ITERS, "backend": "gloo"}
+    print(json.dumps({"dp_scaling": scaling}))
+    return {"runs": runs, "scaling": scaling}
+
+
+def cpu_threads(dev):
+    """Ranks on the CPU (a rehearsal) run one thread each, as the caller
+    must for equal reductions; on the card PyTorch's default."""
+    return 1 if dev.type == "cpu" else None
+
+
+def dp_train_path(dev, cfg, model, batches, gen) -> dict:
+    """``make_dp_train_step`` at world 2 on the card (gloo) for Ref and Desc,
+    a warm-up step and a step each from the model's state, rank r on the
+    main path's pair r, under deterministic algorithms: the active stage's
+    parameters and running statistics bit-equal across ranks after each
+    step and within 1e-6 of one process's step on the mean gradient (loss
+    within 1e-5 relative), the running statistics the mean of the two
+    one-pair updates; only the active stage moves; every step's launches
+    as ``TRAIN_STEP``.  Prints ms/step and peak memory a rank."""
+    import torch
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train.trainer import make_optimizer, mean_train_step
+    from buffer_tpu_torch.utils.dist import launch
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu_batches = [type(b)(_cpu(b.inputs), b.relt_pose.cpu()) for b in batches]
+    stages = ("Ref", "Desc")
+    draws = {s: [[_cpu(make_train_draws(cfg, gen, dev)) for _ in cpu_batches]
+                 for _ in range(DP_TRAIN_STEPS)] for s in stages}
+    t0 = time.time()
+    ranks = launch("buffer_tpu_torch.utils.dp_jobs:train_job",
+                   {"cfg": cfg, "state": state, "stages": list(stages),
+                    "batches": [cpu_batches] * DP_TRAIN_STEPS, "draws": draws,
+                    "device": str(dev), "deterministic": True}, 2,
+                   backend="gloo", device=dev, timeout=DP_TIMEOUT,
+                   threads=cpu_threads(dev))
+    wall = time.time() - t0
+    lines = []
+    for stage in stages:
+        ref = type(model)(cfg)
+        ref.load_state_dict(state)
+        ref = ref.to(dev)
+        opt, _ = make_optimizer(cfg, ref, stage)
+        errs = []
+        for i in range(DP_TRAIN_STEPS):
+            steps = [r["stages"][stage]["steps"][i] for r in ranks]
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                loss, _ = mean_train_step(ref, opt, stage, cpu_batches,
+                                          draws[stage][i], device=dev)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            want = ref.state_dict()
+            for st in steps:
+                check_launches(f"dp train {stage}", st["launches"],
+                               TRAIN_STEP[stage])
+                if st["others_changed"] or float(st["stats"]["grad_finite"]) != 1.0:
+                    raise RuntimeError(f"dp train {stage}: frozen stages "
+                                       f"changed {st['others_changed'][:4]} or "
+                                       "a step was skipped")
+                if any(not torch.equal(v, steps[0]["state"][k])
+                       for k, v in st["state"].items()):
+                    raise RuntimeError(f"dp train {stage}: ranks differ")
+            err = max(float((v.float() - want[k].cpu().float()).abs().max())
+                      for k, v in steps[0]["state"].items()
+                      if v.is_floating_point())
+            loss_rel = abs(float(steps[0]["loss"]) - float(loss)) / max(
+                abs(float(loss)), 1e-30)
+            if err > 1e-6 or loss_rel > 1e-5:
+                raise RuntimeError(f"dp train {stage} step {i}: {err} from the "
+                                   f"one-process mean step (loss {loss_rel})")
+            errs.append({"param_max_abs_err": err, "loss_rel_err": loss_rel})
+        moved = [k for k, v in ranks[0]["stages"][stage]["steps"][-1]["state"].items()
+                 if "running" not in k and "num_batches" not in k
+                 and not torch.equal(v, state[k])]
+        if not moved:
+            raise RuntimeError(f"dp train {stage}: no parameter moved")
+        ms = [[st["ms"] for st in r["stages"][stage]["steps"]] for r in ranks]
+        line = {"path": "dp train 3DMatch", "stage": stage, "world": 2,
+                "backend": "gloo", "step_ms": ms,
+                "ms_per_step": sum(m[-1] for m in ms) / len(ms),
+                "peak_mem_bytes": [r["stages"][stage]["peak_mem_bytes"]
+                                   for r in ranks],
+                "params_moved": len(moved), "one_process": errs,
+                "losses": [float(st["loss"]) for st in
+                           ranks[0]["stages"][stage]["steps"]]}
+        print(json.dumps(line))
+        lines.append(line)
+    return {"stages": lines, "wall_s": wall}
+
+
+def dp_eval_path(dev, roots: dict, one: dict) -> dict:
+    """The test entry point as 2 ranks with the ``torchrun`` variables
+    (gloo: both ranks on the card) over the eval phase's 3DMatch tree and
+    snapshot: every rank's recall, TE, RE and pairs, and rank 0's est.log,
+    equal the eval phase's one-process run."""
+    from buffer_tpu_torch.utils.dist import launch
+    base = os.path.dirname(roots["3DMatch"])
+    log_dir = os.path.join(base, "log_dp")
+    t0 = time.time()
+    ranks = launch("buffer_tpu_torch.scripts.test:main",
+                   ["--config", "3DMatch", "--data-root", roots["3DMatch"],
+                    "--torch-weights", os.path.join(base, "snapshot_3DMatch"),
+                    "--log-dir", log_dir, "--dist-backend", "gloo",
+                    "--device", dev.type], 2, device=dev, timeout=DP_TIMEOUT,
+                   threads=cpu_threads(dev))
+    wall = time.time() - t0
+    same = lambda a, b: a == b or (math.isnan(a) and math.isnan(b))
+    for r in ranks:
+        for k in ("recall", "TE", "RE", "pairs", "registration_recall"):
+            if not same(r[k], one[k]):
+                raise RuntimeError(f"dp eval: {k} {r[k]}, one process {one[k]}")
+    scene = sorted(os.listdir(log_dir))
+    one_dir = os.path.join(base, "log_3DMatch--torch-weights")
+    for sc in scene:
+        with open(os.path.join(log_dir, sc, "est.log")) as f, \
+                open(os.path.join(one_dir, sc, "est.log")) as g:
+            if f.read() != g.read():
+                raise RuntimeError(f"dp eval: est.log of {sc} differs")
+    if scene != sorted(os.listdir(one_dir)):
+        raise RuntimeError(f"dp eval: scenes {scene}")
+    line = {"path": "dp eval 3DMatch", "world": 2, "backend": "gloo",
+            "pairs": ranks[0]["pairs"], "wall_s": wall,
+            "model_ms_per_round": 1e3 * ranks[0]["model_time"],
+            "data_ms_per_pair": 1e3 * ranks[0]["data_time"],
+            "one_process_model_ms_per_pair": one["model_ms_per_pair"],
+            "recall": ranks[0]["recall"]}
+    print(json.dumps(line))
+    return line
+
+
+def synthetic_path(roots: dict) -> dict:
+    """``scripts.synthetic_eval.main`` with the eval phase's seeded snapshots:
+    2 + 2 rooms (high and low overlap), 2 KITTI scenes, and one room with
+    ``--exact``; the GT cross-check's gates pass, every pair launches its
+    path's kernels (counts read around each ``register_pair``), the JSON
+    record's buckets agree with the per-pair lines.  Prints each record and
+    ms/pair (host clock around each synchronized ``register_pair``)."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
+    from buffer_tpu_torch.scripts import synthetic_eval
+    base = os.path.join(os.path.dirname(os.path.dirname(roots["3DMatch"])),
+                        "synth_smoke")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    snaps = os.path.dirname(roots["3DMatch"])
+    fn, lines = registration.register_pair, []
+
+    def recorded(*args, **kw):
+        before = cuda.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((1e3 * (time.perf_counter() - t0),
+                      {k: v - before[k] for k, v in cuda.launch_counts().items()}))
+        return out
+
+    for name, preset, extra, n_pairs, table in (
+            ("3DMatch", "3DMatch", ["--pairs", "2", "--low-pairs", "2"], 4,
+             PER_PAIR["3DMatch"]),
+            ("KITTI", "KITTI", ["--pairs", "2"], 2, PER_PAIR["KITTI"]),
+            ("3DMatch --exact", "3DMatch",
+             ["--pairs", "1", "--exact", "--buckets", "high"], 1,
+             SYNTH_EXACT_PAIR)):
+        calls = []
+        rec_path = os.path.join(base, f"{name.replace(' ', '')}.json")
+        pp_path = rec_path + "l"
+        cuda.reset_launches()
+        t0 = time.time()
+        registration.register_pair = recorded
+        try:
+            rc = synthetic_eval.main(
+                ["--config", preset, *extra, "--torch-weights",
+                 os.path.join(snaps, f"snapshot_{preset}"), "--json", rec_path,
+                 "--per-pair-json", pp_path])
+        finally:
+            registration.register_pair = fn
+        wall = time.time() - t0
+        with open(rec_path) as f:
+            (rec,) = [json.loads(ln) for ln in f]
+        with open(pp_path) as f:
+            per_pair = [json.loads(ln) for ln in f]
+        if rc != 0 or len(calls) != n_pairs or len(per_pair) != n_pairs:
+            raise RuntimeError(f"synthetic eval {name}: rc {rc}, {len(calls)} "
+                               f"registrations, {len(per_pair)} records")
+        for _, rose in calls:
+            check_launches(f"synthetic eval {name}", rose, table)
+        for bucket, b in rec["buckets"].items():
+            pp = [p for p in per_pair if p["bucket"] == bucket]
+            if b["pairs"] != len(pp) or b["recall"] != round(
+                    float(sum(p["ok"] for p in pp)) / len(pp), 4):
+                raise RuntimeError(f"synthetic eval {name}: bucket {bucket} "
+                                   f"{b} disagrees with its pairs {pp}")
+        ms = [c[0] for c in calls]
+        line = {"path": "synthetic eval", "run": name, "record": rec,
+                "per_pair": per_pair, "register_ms": ms,
+                "ms_per_pair": sum(ms[1:] or ms) / len(ms[1:] or ms),
+                "wall_s": wall,
+                "launches_per_pair": {k: v for k, v in calls[0][1].items() if v}}
+        print(json.dumps(line))
+        lines.append(line)
+    return {"runs": lines}
+
+
+def calibrate_path(cfg, roots: dict) -> dict:
+    """``scripts.calibrate.main`` over the eval phase's 3DMatch tree (host
+    work): the suggested caps and padded sizes beside the shipped preset's."""
+    from buffer_tpu_torch.scripts import calibrate
+    t0 = time.time()
+    got = calibrate.main(["--config", "3DMatch", "--data-root",
+                          roots["3DMatch"]])
+    st = cfg.static
+    shipped = {"neighbor_caps": list(st.neighbor_caps),
+               "pool_caps": list(st.pool_caps),
+               "points_l0": st.points_l0, "points_l1": st.points_l1,
+               "points_l2": st.points_l2, "raw_points": st.raw_points}
+    line = {"path": "calibrate", "suggested": got, "shipped": shipped,
+            "wall_s": time.time() - t0}
+    print(json.dumps(line))
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1311,6 +1618,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     model = BufferModel(cfg, seed=0).to(dev)
     pairs, poses_gt, draws, prep_s = pairs_of(cfg, surface_pair, range(n_pairs))
     counts, *rest = drive("3DMatch", model, dev, pairs, draws)
+    main_results = rest[1]
     main_line = path_line("3DMatch", cfg, counts, *rest, prep_s, pairs[0])
     lap("3DMatch")
 
@@ -1406,7 +1714,8 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     # ---- the evaluation path through the test entry point ---------------
     evaluation = eval_path(dev, cfg, kcfg, save_dir)
     lap("eval")
-    presets = presets_path(dev, evaluation.pop("roots"))
+    eval_roots = evaluation.pop("roots")
+    presets = presets_path(dev, eval_roots)
     lap("presets")
 
     # ---- train from scratch, then register (a reduced count) ------------
@@ -1697,6 +2006,20 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     print(json.dumps({"issue_floor": derived}))
     lap("kernels against plain versions")
 
+    # ---- data parallelism over pairs: ranks on the one card -------------
+    dp_register = dp_register_path(dev, cfg, model, pairs, draws, main_results)
+    lap("dp register 3DMatch")
+    dp_train = dp_train_path(dev, cfg, BufferModel(cfg, seed=0), batches, tgen)
+    lap("dp train 3DMatch")
+    dp_eval = dp_eval_path(dev, eval_roots, evaluation["runs"][0])
+    lap("dp eval 3DMatch")
+
+    # ---- the synthetic evaluation and calibration -----------------------
+    synthetic = synthetic_path(eval_roots)
+    lap("synthetic eval 3DMatch / KITTI")
+    calibration = calibrate_path(cfg, eval_roots)
+    lap("calibrate")
+
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
@@ -1712,6 +2035,9 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "banded_calls": {"3DMatch": rows, "KITTI": krows},
             "banded_quality": quality, "exact_search_reference": reference,
             "kernels": kernels, "issue_floor": derived, "phase_s": phases,
+            "dp_register": dp_register, "dp_train": dp_train,
+            "dp_eval": dp_eval, "synthetic_eval": synthetic,
+            "calibrate": calibration,
             "pose_gt": {"3DMatch": [T.tolist() for T in poses_gt],
                         "KITTI": [T.tolist() for T in kposes_gt]}}
 

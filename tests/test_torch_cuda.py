@@ -550,3 +550,83 @@ def test_device_levels_on_card_equal_host_levels(card):
             d = torch.cdist(a.double(), h.double())
             assert float(d.min(1).values.max()) < 1e-5
             assert float(d.min(0).values.max()) < 1e-5
+
+
+def _cpu(nt):
+    return type(nt)(*(None if t is None else t.cpu() for t in nt))
+
+
+@pytest.mark.cuda
+def test_dp_register_world_2_on_card_equals_one_process(card):
+    """``make_dp_register`` at world 2, both ranks on the card (gloo), over
+    3 tiny banded pairs (the second round padded): on both ranks the
+    gathered poses and mutual counts equal one process's ``register_pair``
+    bit for bit, and every pair launches the kernels."""
+    from buffer_tpu_torch.utils import dp_scaling
+    c = tiny_cfg()
+    cfg = c.replace(static=dataclasses.replace(
+        c.static, points_l0=4096, points_l1=2048, points_l2=512,
+        raw_points=4096, knn_band=512))
+    model = BufferModel(cfg, seed=1).to(card).eval()
+    pairs = [_cpu(_tiny_pair(cfg, card, 4000, 1.0 + 0.1 * i)) for i in range(3)]
+    gen = torch.Generator(card).manual_seed(0)
+    draws = [registration.make_draws(cfg, gen, card) for _ in pairs]
+    out = dp_scaling.measure(cfg, model.state_dict(), pairs, draws, 2, "gloo",
+                             iters=0, timeout=300)
+    for i, (p, d) in enumerate(zip(pairs, draws)):
+        res = registration.register_pair(model, p, d, device=card)
+        for o in out:
+            assert torch.equal(o["pose"][i], res.pose.cpu())
+            assert int(o["num_mutual"][i]) == int(res.num_mutual)
+    for o in out:
+        for rose in o["launches"]:
+            for name in ("bknn", "bnn1", "nearest", "fps", "ball_sample",
+                         "spt_pooled"):
+                assert rose[name] > 0, rose
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["Ref", "Desc"])
+def test_dp_train_step_world_2_on_card(card, stage):
+    """The DP step of ``stage`` at world 2 on the card (gloo), tiny banded
+    plan, two pairs, under deterministic algorithms: parameters bit-equal
+    across ranks, and equal to one process's step on the mean gradient
+    within 1e-5 (loss) / 1e-6 (parameters)."""
+    import os
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train.trainer import (TrainBatch, make_optimizer,
+                                                mean_train_step)
+    from buffer_tpu_torch.utils.dist import launch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    c = tiny_cfg()
+    cfg = c.replace(static=dataclasses.replace(
+        c.static, points_l0=4096, points_l1=2048, points_l2=512,
+        raw_points=4096, knn_band=512))
+    model = BufferModel(cfg, seed=1)
+    state = model.state_dict()
+    T = torch.eye(4)
+    T[:3, 3] = 0.02
+    batches = [TrainBatch(_cpu(_tiny_pair(cfg, card, 4000, 1.0 + 0.1 * i)), T)
+               for i in range(2)]
+    gen = torch.Generator(card).manual_seed(3)
+    draws = [_cpu(make_train_draws(cfg, gen, card)) for _ in batches]
+    out = launch("buffer_tpu_torch.utils.dp_jobs:train_job",
+                 {"cfg": cfg, "state": state, "stages": [stage],
+                  "batches": [batches], "draws": {stage: [draws]},
+                  "device": None, "deterministic": True}, 2, backend="gloo",
+                 timeout=300)
+    got = [o["stages"][stage]["steps"][0] for o in out]
+    for k, v in got[0]["state"].items():
+        assert torch.equal(v, got[1]["state"][k]), k
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = model.to(card)
+        opt, _ = make_optimizer(cfg, model, stage)
+        loss, _ = mean_train_step(model, opt, stage, batches, draws,
+                                  device=card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert abs(float(got[0]["loss"]) - float(loss)) <= 1e-5 * abs(float(loss))
+    ref = model.state_dict()
+    for k, v in got[0]["state"].items():
+        torch.testing.assert_close(v, ref[k].cpu(), rtol=0, atol=1e-6, msg=k)
