@@ -25,8 +25,8 @@ def integrate_trans(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[..., 4, 4] from R [..., 3, 3] and t [..., 3] or [..., 3, 1]."""
     t = t.reshape(R.shape[:-2] + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(R.shape[:-2] + (1, 4))
+    bottom = torch.eye(4, dtype=R.dtype,
+                       device=R.device)[3].expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -101,7 +101,7 @@ def random_rotation(u: torch.Tensor, num_axis: int,
     if num_axis == 0:
         return torch.eye(3, dtype=u.dtype, device=u.device)
     if num_axis == 1:
-        mask = torch.tensor([0.0, 0.0, 1.0], dtype=u.dtype, device=u.device)
+        mask = torch.eye(3, dtype=u.dtype, device=u.device)[2]
         return angles_to_rotation_matrix(angles * mask)
     zero = torch.zeros_like(angles[0])
     Rx = angles_to_rotation_matrix(torch.stack([angles[0], zero, zero]))

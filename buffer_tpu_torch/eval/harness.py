@@ -1,7 +1,8 @@
 """Evaluation harness (counterpart of ``buffer_tpu/eval/harness.py``;
 reference ``ThreeDMatch/test.py``, ``KITTI/test.py``,
 ``generalization/*/test.py``): every pair of a dataset through
-:func:`~buffer_tpu_torch.pipeline.registration.register_pair`, Redwood
+:func:`~buffer_tpu_torch.pipeline.registration.make_register_fn` (the
+compiled registration program: CUDA graphs on the card), Redwood
 trajectories written per scene, DGR recall under each dataset's RTE/RRE
 thresholds and, for 3DMatch and 3DLoMatch, the covariance-weighted
 registration recall against ``gt.info``.
@@ -10,10 +11,11 @@ Pairs are registered one at a time on the device, or, in a process group
 of more than one rank, one pair a rank in rounds (:func:`make_dp_register`,
 the JAX package's data parallelism over pairs).  Host prep (dataset IO,
 voxelization and ``prepare_pair``) runs on a producer thread (rank 0's) and
-yields CPU tensors only; the producer never touches the device.  The copy
-to the device happens on the consumer side, inside ``register_pair``, and
-so counts in ``model_time`` (a few MB a pair), while ``data_time`` is host
-work alone.
+yields CPU tensors only; the producer never touches the device (so the
+program's capture, on the consumer side, runs in the default global
+capture mode).  The copy to the device happens on the consumer side, into
+the program's input buffers, and so counts in ``model_time`` (a few MB a
+pair), while ``data_time`` is host work alone.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from buffer_tpu_torch.data.preprocess import prepare_pair
 from buffer_tpu_torch.eval import metrics
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.pipeline.registration import (Draws, PairInputs,
-                                                    make_draws, register_pair)
+                                                    make_draws,
+                                                    make_register_fn)
 from buffer_tpu_torch.utils.dist import group_size
 from buffer_tpu_torch.utils.logging import MetricLogger, Timer
 
@@ -107,13 +110,16 @@ def run_eval(cfg: Config, model: BufferModel, dataset: Sequence,
     default device: the CUDA card).
 
     Pair i's random draws come from ``draws_fn(i)`` when given, otherwise
-    from one device generator seeded with ``seed``, pair after pair.
-    ``model_time`` is the host clock around draws + ``register_pair`` up to
-    a device synchronize, averaged over the pairs registered; ``data_time``
-    the producer's host prep a pair.  With ``log_dir``, writes each scene's
-    ``est.log`` (inverse poses) and, for 3DMatch and 3DLoMatch, adds the
-    registration recall.  Returns ``recall``, ``TE``, ``RE``,
-    ``data_time``, ``model_time``, ``pairs`` (and ``registration_recall``).
+    from one device generator seeded with ``seed``, pair after pair.  Pairs
+    go through one :func:`make_register_fn` program built for the model and
+    device (its first pair carries warm-up and capture, as JAX's first pair
+    carries its compile).  ``model_time`` is the host clock around draws +
+    the program's call up to a device synchronize, averaged over the pairs
+    registered; ``data_time`` the producer's host prep a pair.  With
+    ``log_dir``, writes each scene's ``est.log`` (inverse poses) and, for
+    3DMatch and 3DLoMatch, adds the registration recall.  Returns
+    ``recall``, ``TE``, ``RE``, ``data_time``, ``model_time``, ``pairs``
+    (and ``registration_recall``).
 
     In a process group of D > 1 ranks every rank calls ``run_eval`` with
     the same arguments.  With ``use_dp`` (default: D > 1 and n >= D, as the
@@ -180,9 +186,10 @@ def run_eval(cfg: Config, model: BufferModel, dataset: Sequence,
             torch.cuda.synchronize(dev)
 
     if not use_dp:
+        register = make_register_fn(model, device=dev)
         for i, item, inputs in _prefetch(cfg, dataset, n, rs, data_timer):
             model_timer.tic()
-            res = register_pair(model, inputs, draws_for(i), device=dev)
+            res = register(inputs, draws_for(i))
             synchronize()
             model_timer.toc()
             record(i, item, res.pose, res.num_mutual)
@@ -254,11 +261,17 @@ def make_dp_register(model: BufferModel, group=None):
     this rank's pair of ``group`` (default: the default group) with its own
     draws, every rank calling it once a round, and all-gathers the poses
     and ``num_mutual``, so that every rank holds the round's results with a
-    leading D axis (rank r's pair at r)."""
+    leading D axis (rank r's pair at r).  A rank registers through its own
+    :func:`make_register_fn` program, one for each device it is asked
+    for."""
     world = group_size(group)
+    programs = {}
 
     def fn(inputs: PairInputs, draws: Draws, device=None) -> DPResult:
-        res = register_pair(model, inputs, draws, device=device)
+        dev = resolve_device(device)
+        if dev not in programs:
+            programs[dev] = make_register_fn(model, device=dev)
+        res = programs[dev](inputs, draws)
         mutual = res.num_mutual.reshape(1)
         poses = [torch.empty_like(res.pose) for _ in range(world)]
         mutuals = [torch.empty_like(mutual) for _ in range(world)]

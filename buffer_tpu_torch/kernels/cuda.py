@@ -191,3 +191,10 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Adds ``counts`` to the kernels' counts: the launches of a replayed
+    CUDA graph, recorded when it was captured (a replay runs no Python)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

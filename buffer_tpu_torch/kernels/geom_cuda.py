@@ -172,14 +172,14 @@ def ball_sample_planes_plain(query, support, support_valid, prio, radius: float,
     N = support.shape[1]
     NS = k // 2
     L = N // NS
-    r2 = torch.tensor(float(radius) ** 2, dtype=torch.float32,
-                      device=query.device)
+    r2 = torch.full((), float(radius) ** 2, dtype=torch.float32,
+                    device=query.device)
     u = torch.where(support_valid, prio, torch.full_like(prio, -BIG))
     gx, gy, gz, gn, gu = _ball_grids(support, u, NS)
     outs = [torch.empty((B, Q, k), dtype=torch.float32, device=query.device)
             for _ in range(3)]
     vout = torch.empty((B, Q, k), dtype=torch.bool, device=query.device)
-    neg = torch.tensor(-BIG, dtype=torch.float32, device=query.device)
+    neg = torch.full((), -BIG, dtype=torch.float32, device=query.device)
     for b in range(B):
         grids = [g[b].transpose(0, 1) for g in (gx, gy, gz, gn, gu)]  # [NS, L]
         sx, sy, sz, sn, su = grids
@@ -436,7 +436,7 @@ def spt_winners_plain(planes, R, u, anchor, NSEG: int, r2: float, chunk: int):
     K, S = xP.shape
     LS = S // NSEG
     ax2, ay2, az2, an = anchor
-    neg = torch.tensor(-BIG, dtype=torch.float32, device=xP.device)
+    neg = torch.full((), -BIG, dtype=torch.float32, device=xP.device)
     for k0 in range(0, K, chunk):
         px, py, pz = xP[k0:k0 + chunk], yP[k0:k0 + chunk], zP[k0:k0 + chunk]
         Rk = R[k0:k0 + chunk]

@@ -195,7 +195,7 @@ def _window_keys(query: torch.Tensor, grid: torch.Tensor, r0: torch.Tensor,
     d2 = dx * dx + dy * dy
     d2 = d2 + dz * dz
     d2 = torch.where(win[..., 3] != 0, d2, d2 + BIG)
-    d2 = torch.maximum(d2, torch.tensor(TINY, dtype=torch.float32, device=dev))
+    d2 = torch.maximum(d2, torch.full((), TINY, dtype=torch.float32, device=dev))
     return (d2.view(torch.int32) & ~ROW_MASK) | rows[:, None]
 
 
@@ -237,8 +237,8 @@ def banded_knn_plain(query: torch.Tensor, support: torch.Tensor,
     r0 = window_starts(support_valid, query_valid, NR, LW)
     grid = support_grid(support.float(), support_valid, NR)
     r2 = (None if radius is None else
-          torch.tensor(float(radius) ** 2, dtype=torch.float32,
-                       device=query.device))
+          torch.full((), float(radius) ** 2, dtype=torch.float32,
+                     device=query.device))
     keys = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
     n_tiles = r0.shape[1]
     for t0 in range(0, n_tiles, TILE_CHUNK):

@@ -24,6 +24,7 @@ are inputs: ball and SPT priorities, SO(2) angles.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -37,6 +38,29 @@ from buffer_tpu_torch.nn.cylindrical import CylindricalNet
 from buffer_tpu_torch.ops.neighbors import ball_sample_planes, ball_sample_points
 
 BIG = 1e9
+
+
+@functools.lru_cache(maxsize=None)
+def spt_anchors(rad_n: int, azi_n: int, ele_n: int, dtype, device):
+    """The SPT anchor centres of the unit grid, [rad_n*ele_n*azi_n, 3], on
+    ``device`` (made once for each grid, dtype and device, so that no call
+    copies host data)."""
+    return torch.as_tensor(gridmath.get_voxel_coordinate(
+        1.0, rad_n, azi_n, ele_n).reshape(-1, 3), dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def azimuth_derotations(azi_n: int, dtype, device):
+    """:func:`gridmath.azimuth_derotations` [azi_n, 3, 3] on ``device``
+    (made once for each size, dtype and device)."""
+    return torch.as_tensor(gridmath.azimuth_derotations(azi_n), dtype=dtype,
+                           device=device)
+
+
+def unit_axis(d: int, like: torch.Tensor) -> torch.Tensor:
+    """The unit vector along axis ``d`` [3], with ``like``'s dtype and
+    device (a fill on the device, not a copy of host data)."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[d]
 
 
 def extract_patch_planes(pts, pts_valid, prio, kpts, des_r: float,
@@ -75,14 +99,12 @@ def axis_align(patches: torch.Tensor, dataset: str, z_axis: torch.Tensor):
     center = patches[:, -1, :]
     delta = patches - center[:, None, :]
     if dataset in ("3DMatch", "3DLoMatch"):
-        target = torch.tensor([0.0, 0.0, 1.0], dtype=patches.dtype,
-                              device=patches.device).expand_as(z_axis)
+        target = unit_axis(2, patches).expand_as(z_axis)
         R = se3.rodrigues_a_to_b(z_axis, target)
         rand_axis = safe_normalize(torch.cross(z_axis, target, dim=-1), dim=-1)
         return delta @ R, rand_axis, R
     K = patches.shape[0]
-    rand_axis = torch.tensor([1.0, 0.0, 0.0], dtype=patches.dtype,
-                             device=patches.device).expand(K, 3)
+    rand_axis = unit_axis(0, patches).expand(K, 3)
     R = torch.eye(3, dtype=patches.dtype, device=patches.device).expand(K, 3, 3)
     return delta, rand_axis, R
 
@@ -108,13 +130,11 @@ def spt(prio: torch.Tensor, delta_x: torch.Tensor, rad_n: int, azi_n: int,
     order), empty slots zero, then the azimuth derotation.  delta_x
     [K, S, 3] -> [K, A, voxel_sample, 3]."""
     dt, dev = delta_x.dtype, delta_x.device
-    anchors = torch.as_tensor(gridmath.get_voxel_coordinate(
-        1.0, rad_n, azi_n, ele_n).reshape(-1, 3), dtype=dt, device=dev)
-    derot = torch.as_tensor(gridmath.azimuth_derotations(azi_n), dtype=dt,
-                            device=dev)
+    anchors = spt_anchors(rad_n, azi_n, ele_n, dt, dev)
+    derot = azimuth_derotations(azi_n, dt, dev)
     a2 = torch.sum(anchors * anchors, dim=-1)
     r2 = voxel_r * voxel_r
-    neg = torch.tensor(-BIG, dtype=dt, device=dev)
+    neg = torch.full((), -BIG, dtype=dt, device=dev)
     out = []
     for k0 in range(0, delta_x.shape[0], kpt_chunk):
         block = delta_x[k0:k0 + kpt_chunk]                          # [Kc, S, 3]
@@ -133,8 +153,7 @@ def spt(prio: torch.Tensor, delta_x: torch.Tensor, rad_n: int, azi_n: int,
 def align_rotation(dataset: str, z_axis: torch.Tensor) -> torch.Tensor:
     """Per-patch alignment [K, 3, 3] (patch_embedder.py:123-149)."""
     if dataset in ("3DMatch", "3DLoMatch"):
-        target = torch.tensor([0.0, 0.0, 1.0], dtype=z_axis.dtype,
-                              device=z_axis.device).expand_as(z_axis)
+        target = unit_axis(2, z_axis).expand_as(z_axis)
         return se3.rodrigues_a_to_b(z_axis, target)
     return torch.eye(3, dtype=z_axis.dtype,
                      device=z_axis.device).expand(z_axis.shape[0], 3, 3)
@@ -149,8 +168,7 @@ def fold_point_mlp(desc: "MiniSpinNet", azi_n: int):
     scale = bn.weight / torch.sqrt(bn.running_var + 1e-5)
     W_eff = W * scale[None, :]
     b_eff = (conv.bias - bn.running_mean) * scale + bn.bias
-    R = torch.as_tensor(gridmath.azimuth_derotations(azi_n), dtype=W.dtype,
-                        device=W.device)
+    R = azimuth_derotations(azi_n, W.dtype, W.device)
     W_all = torch.einsum("aji,jc->aic", R, W_eff)           # R_a^T @ W_eff
     return W_all, b_eff, torch.relu(b_eff)
 

@@ -46,8 +46,7 @@ def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
     best = torch.argmax(norms, dim=-1)
     v = torch.gather(M, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
     n = safe_norm(v, dim=-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype,
-                            device=A.device).expand(v.shape)
+    fallback = eye[2].expand(v.shape)
     return torch.where(n > 1e-10, v / torch.clamp(n, min=EPS), fallback)
 
 

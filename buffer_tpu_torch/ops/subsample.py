@@ -28,7 +28,7 @@ def voxel_subsample(points: torch.Tensor, valid: torch.Tensor,
     sorted order, one thread a segment on the card, so the result is bit
     for bit the same on the CPU and on the card."""
     dev, dt = points.device, points.dtype
-    dl = torch.tensor(voxel_size, dtype=dt, device=dev)
+    dl = torch.full((), voxel_size, dtype=dt, device=dev)
     masked = torch.where(valid[:, None], points, torch.full_like(points, 1e9))
     origin = torch.floor(masked.min(dim=0).values / dl) * dl
     coords = torch.floor((points - origin) / dl).to(torch.int32)
@@ -54,8 +54,10 @@ def voxel_subsample(points: torch.Tensor, valid: torch.Tensor,
         seg_c, torch.arange(out_size + 1, dtype=torch.int32, device=dev),
         right=True)
     lengths = torch.diff(ends, prepend=ends.new_zeros(1))
+    # the lengths sum to N by construction: unsafe skips the check, which
+    # reads them on the host
     sums = torch.segment_reduce(pts_s * keep[:, None].to(dt), "sum",
-                                lengths=lengths, axis=0)[:out_size]
+                                lengths=lengths, axis=0, unsafe=True)[:out_size]
     cnts = lengths[:out_size].to(dt)
     out = sums / torch.clamp(cnts, min=1.0)[:, None]
     mask = cnts > 0

@@ -13,6 +13,12 @@ from buffer_tpu_torch.core import se3
 BIG = 1e9
 
 
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-dim index tensor ``i``, without reading ``i`` on
+    the host (indexing by a 0-dim tensor does)."""
+    return torch.index_select(x, 0, i.reshape(1))[0]
+
+
 class Matches(NamedTuple):
     src_idx: torch.Tensor   # [K] int32, arange
     tgt_idx: torch.Tensor   # [K] int32, NN of source keypoint i in the target
@@ -71,4 +77,4 @@ def vote_hypotheses(ss_kpts, tt_kpts, R, t, mutual, azi_n: int,
     counts = torch.where(mutual, torch.sum(sign, dim=-1),
                          torch.full_like(mutual, -1, dtype=torch.int64))
     best = torch.argmax(counts)
-    return best, sign[best]
+    return best, take(sign, best)

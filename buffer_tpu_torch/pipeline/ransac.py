@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from buffer_tpu_torch.core import se3
-from buffer_tpu_torch.pipeline.matching import warp_sqdist
+from buffer_tpu_torch.pipeline.matching import take, warp_sqdist
 
 
 def sample_triplets(valid: torch.Tensor, gumbel: torch.Tensor) -> torch.Tensor:
@@ -45,9 +45,9 @@ def ransac_pose(gumbel: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
     counts = torch.where(ok, torch.sum(inl, dim=-1),
                          torch.full_like(ok, -1, dtype=torch.int64))
     best = torch.argmax(counts)
-    pose = T[best]
-    inliers = inl[best]
-    feasible = (torch.sum(valid) >= 3) & (counts[best] > 0)
+    pose = take(T, best)
+    inliers = take(inl, best)
+    feasible = (torch.sum(valid) >= 3) & (take(counts, best) > 0)
     w = inliers.to(src.dtype)
     refit_T = se3.kabsch_quat(src[None], tgt[None], w[None])[0]
     pose = torch.where(torch.sum(inliers) >= 3, refit_T, pose)

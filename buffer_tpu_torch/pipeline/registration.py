@@ -14,17 +14,24 @@ sampled SPT in PyTorch).
 Everything runs in fp32 at full precision (TF32 off for matmuls and cuDNN
 convolutions), as the reference runs at ``default_matmul_precision
 ("highest")``.  Randomness is an input: :class:`Draws`.
+
+:func:`register_pair` runs a pair operator by operator;
+:func:`make_register_fn` runs the same two parts, :func:`pair_front` and
+:func:`pair_tail`, as captured CUDA graphs, as the JAX package runs
+``register_pair`` as one jitted program.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import NamedTuple, Optional
 
 import torch
 
 from buffer_tpu_torch import resolve_device
 from buffer_tpu_torch.config import Config
+from buffer_tpu_torch.kernels import cuda
 from buffer_tpu_torch.models import patch_embedder as pe
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.ops.sampling import farthest_point_sample_batched
@@ -168,6 +175,14 @@ class StageTimer:
                 zip(self.STAGES, self.events, self.events[1:])}
 
 
+def _check_model(model: BufferModel, dev: torch.device) -> None:
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"model lives on {next(model.parameters()).device}, "
+                         f"not on {dev}")
+    if model.training:
+        raise ValueError("register_pair runs the model in eval mode only")
+
+
 def register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
                   device=None, return_intermediates: bool = False,
                   timer: Optional[StageTimer] = None):
@@ -175,26 +190,49 @@ def register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
     must already live there.  Returns a :class:`RegistrationResult`, and
     with ``return_intermediates`` also the per-stage dict of the
     reference's ``register_pair``.  A ``timer`` (CUDA only) records an
-    event at each stage boundary."""
+    event at each stage boundary.  Runs operator by operator;
+    :func:`make_register_fn` runs the same front and tail as CUDA graphs."""
     dev = resolve_device(device)
-    if next(model.parameters()).device != dev:
-        raise ValueError(f"model lives on {next(model.parameters()).device}, "
-                         f"not on {dev}")
-    if model.training:
-        raise ValueError("register_pair runs the model in eval mode only")
+    _check_model(model, dev)
     move = lambda t: None if t is None else t.to(dev)
     inputs = PairInputs(*(move(t) for t in inputs))
     draws = Draws(*(move(t) for t in draws))
+    mark = timer.mark if timer is not None else lambda: None
     with torch.no_grad(), full_fp32():
-        return _register_pair(model, inputs, draws, return_intermediates,
-                              timer.mark if timer is not None else lambda: None)
+        mark()
+        front, inter = pair_front(model, inputs, draws, mark)
+        boost = boost_taken(model.cfg, front.num_mutual)
+        pose, num_inliers = pair_tail(model.cfg, front,
+                                      *tail_budget(model.cfg, draws, boost))
+        mark()
+    result = RegistrationResult(pose=pose, num_mutual=front.num_mutual,
+                                num_inliers=num_inliers, kpts=front.kpts,
+                                kpt_valid=front.kpt_valid)
+    return (result, inter) if return_intermediates else result
 
 
-def _register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
-                   return_intermediates: bool, mark):
+class Front(NamedTuple):
+    """What :func:`pair_front` hands the tail, and the pair's outputs that
+    it computes."""
+
+    ss_kpts: torch.Tensor       # [K, 3] source keypoints
+    tt_kpts: torch.Tensor       # [K, 3] their nearest target keypoints
+    mutual: torch.Tensor        # [K] bool
+    vote_inliers: torch.Tensor  # [K] bool: the winning hypothesis's inliers
+    num_mutual: torch.Tensor    # [] int64
+    kpts: torch.Tensor          # [2, K, 3]
+    kpt_valid: torch.Tensor     # [2, K]
+
+
+def pair_front(model: BufferModel, inputs: PairInputs, draws: Draws,
+               mark=lambda: None):
+    """The pair up to the RANSAC budget: the pyramid, Ref/Keypt, FPS,
+    descriptors, mutual matching, the cost volume and voting.  Returns
+    (:class:`Front`, the intermediates dict).  Reads nothing back to the
+    host and builds no tensor from host data, so that it can be captured
+    as a CUDA graph."""
     cfg = model.cfg
     K = cfg.point.num_keypts
-    mark()
 
     # 1+2. input normals + conv pyramid, EFCNN axes, DetNet saliency
     levels = (None if inputs.lvl1 is None else
@@ -235,27 +273,10 @@ def _register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
         ss_kpts, tt_kpts, R_h, t_h, m.mutual, cfg.patch.azi_n,
         cfg.match.inlier_th)
 
-    # 8+9. RANSAC on the winner's inliers, then IRLS; a starved match set
-    # (a host-side branch on the mutual count) gets 4x hypotheses and 2x
-    # IRLS rounds (the reference's adaptive budget, models/BUFFER.py:318-324)
-    num_mutual = torch.sum(m.mutual)
-    gumbel, iters = draws.ransac_gumbel, cfg.static.refine_iters
-    if cfg.static.low_match_boost and int(num_mutual) < cfg.static.low_match_th:
-        gumbel, iters = draws.ransac_gumbel_boost, 2 * iters
-    pose, ransac_inl = ransac.ransac_pose(gumbel, ss_kpts, tt_kpts, vote_inliers,
-                                          cfg.match.dist_th, cfg.match.similar_th)
-    if cfg.test.pose_refine:
-        th = 1.2 if cfg.data.dataset == "KITTI" else 0.10
-        pose = refine.post_refinement(pose, ss_kpts, tt_kpts, m.mutual, th,
-                                      iters=iters)
-
-    mark()
-    result = RegistrationResult(pose=pose, num_mutual=num_mutual,
-                                num_inliers=torch.sum(ransac_inl),
-                                kpts=kpts, kpt_valid=kvalid)
-    if not return_intermediates:
-        return result
-    return result, {
+    front = Front(ss_kpts=ss_kpts, tt_kpts=tt_kpts, mutual=m.mutual,
+                  vote_inliers=vote_inliers, num_mutual=torch.sum(m.mutual),
+                  kpts=kpts, kpt_valid=kvalid)
+    return front, {
         "pyramid": pyr, "axis": axis, "eps": eps, "score": score,
         "kidx": kidx, "kvalid": kvalid, "kpts": kpts, "kaxes": kaxes,
         "s_des": s_des, "t_des": t_des, "s_equi": s_equi, "t_equi": t_equi,
@@ -263,3 +284,192 @@ def _register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
         "best_hyp": best, "vote_inliers": vote_inliers, "R_h": R_h,
         "t_h": t_h,
     }
+
+
+def boost_taken(cfg: Config, num_mutual: torch.Tensor) -> bool:
+    """Whether a starved match set gets the low-match budget: the one host
+    read of a pair, the counterpart of JAX's ``lax.cond`` on the mutual
+    count (``buffer_tpu/pipeline/registration.py:279-285``)."""
+    return (cfg.static.low_match_boost
+            and int(num_mutual) < cfg.static.low_match_th)
+
+
+def tail_budget(cfg: Config, draws: Draws, boost: bool):
+    """(Gumbel noise, IRLS rounds) of the base budget or, with ``boost``,
+    of the low-match one: 4x hypotheses and 2x rounds (the reference's
+    adaptive budget, models/BUFFER.py:318-324)."""
+    if boost:
+        return draws.ransac_gumbel_boost, 2 * cfg.static.refine_iters
+    return draws.ransac_gumbel, cfg.static.refine_iters
+
+
+def pair_tail(cfg: Config, front: Front, gumbel: torch.Tensor, iters: int):
+    """RANSAC on the winner's inliers, then (with ``test.pose_refine``)
+    ``iters`` IRLS rounds.  Returns (pose [4, 4], number of RANSAC inliers
+    []).  Capture-safe like :func:`pair_front`."""
+    pose, ransac_inl = ransac.ransac_pose(
+        gumbel, front.ss_kpts, front.tt_kpts, front.vote_inliers,
+        cfg.match.dist_th, cfg.match.similar_th)
+    if cfg.test.pose_refine:
+        th = 1.2 if cfg.data.dataset == "KITTI" else 0.10
+        pose = refine.post_refinement(pose, front.ss_kpts, front.tt_kpts,
+                                      front.mutual, th, iters=iters)
+    return pose, torch.sum(ransac_inl)
+
+
+def _signature(inputs: PairInputs, draws: Draws) -> tuple:
+    """Shapes and dtypes of every field (None for an absent one): the key
+    of a captured program, as jit's cache keys on shapes and dtypes."""
+    return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                 for t in (*inputs, *draws))
+
+
+def _clone(x):
+    """A copy of every tensor in a nest of tuples, named tuples and dicts."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_clone(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _state_ptrs(model: BufferModel) -> tuple:
+    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
+
+
+class _GraphProgram:
+    """One input signature's registration as CUDA graphs: the front, and a
+    tail for each budget (base and, with ``static.low_match_boost``, the
+    low-match one).  Each call copies the caller's tensors into the static
+    input buffers, replays the front, reads the mutual count (the one host
+    read of a pair), replays the taken tail and returns clones of the
+    outputs.
+
+    The graphs share one memory pool.  Every tensor a later graph reads
+    (the front's outputs, the static inputs) and every graph's outputs stay
+    held by the program, and the graphs replay one after another on one
+    stream, so a graph only reuses memory that no live output of another
+    occupies.
+
+    A replay runs no Python, so the kernels' launch counts of each graph
+    are recorded at capture (and taken back: a capture launches nothing)
+    and added on each replay.  ``capture_s``: the host seconds that the
+    captures took."""
+
+    def __init__(self, model: BufferModel, dev: torch.device,
+                 return_intermediates: bool, inputs: PairInputs, draws: Draws):
+        self.model, self.cfg, self.dev = model, model.cfg, dev
+        self.return_intermediates = return_intermediates
+        self.state = _state_ptrs(model)
+        empty = lambda t: None if t is None else torch.empty(
+            t.shape, dtype=t.dtype, device=dev)
+        self.inputs = PairInputs(*(empty(t) for t in inputs))
+        self.draws = Draws(*(empty(t) for t in draws))
+        self._load(inputs, draws)
+        budgets = ((False, True) if self.cfg.static.low_match_boost
+                   else (False,))
+        stream = torch.cuda.current_stream(dev)
+        with torch.no_grad(), full_fp32():
+            # warm-up: an eager run on a side stream, both tails included
+            # (first-use builds, handles and attributes happen here, not
+            # during capture); its result is the first call's
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                front, inter = pair_front(model, self.inputs, self.draws)
+                boost = boost_taken(self.cfg, front.num_mutual)
+                tails = {b: pair_tail(self.cfg, front,
+                                      *tail_budget(self.cfg, self.draws, b))
+                         for b in budgets}
+            stream.wait_stream(side)
+            self.first = self._result(front, inter, *tails[boost])
+            del front, inter, tails
+
+            t0 = time.perf_counter()
+            pool = torch.cuda.graph_pool_handle()
+
+            def capture(run):
+                graph = torch.cuda.CUDAGraph()
+                before = cuda.launch_counts()
+                try:
+                    with torch.cuda.graph(graph, pool=pool):
+                        out = run()
+                finally:
+                    after = cuda.launch_counts()
+                    launches = {k: n - before[k] for k, n in after.items()
+                                if n != before[k]}
+                    cuda.add_launches({k: -n for k, n in launches.items()})
+                return graph, out, launches
+
+            self.front_graph, (self.front, self.inter), self.front_launches = \
+                capture(lambda: pair_front(model, self.inputs, self.draws))
+            self.tails = {b: capture(lambda b=b: pair_tail(
+                self.cfg, self.front, *tail_budget(self.cfg, self.draws, b)))
+                for b in budgets}
+            self.capture_s = time.perf_counter() - t0   # host seconds
+
+    def _load(self, inputs: PairInputs, draws: Draws) -> None:
+        for dst, src in zip((*self.inputs, *self.draws), (*inputs, *draws)):
+            if dst is not None:
+                dst.copy_(src)
+
+    def _result(self, front: Front, inter: dict, pose, num_inliers):
+        result = _clone(RegistrationResult(
+            pose=pose, num_mutual=front.num_mutual, num_inliers=num_inliers,
+            kpts=front.kpts, kpt_valid=front.kpt_valid))
+        return (result, _clone(inter)) if self.return_intermediates else result
+
+    def __call__(self, inputs: PairInputs, draws: Draws):
+        if _state_ptrs(self.model) != self.state:
+            raise RuntimeError(
+                "make_register_fn: the model's parameters or buffers are not "
+                "the tensors the graphs were captured with (load weights in "
+                "place, e.g. load_state_dict, or make a new fn)")
+        self._load(inputs, draws)
+        self.front_graph.replay()
+        cuda.add_launches(self.front_launches)
+        graph, (pose, num_inliers), launches = self.tails[
+            boost_taken(self.cfg, self.front.num_mutual)]
+        graph.replay()
+        cuda.add_launches(launches)
+        return self._result(self.front, self.inter, pose, num_inliers)
+
+
+def make_register_fn(model: BufferModel, device=None,
+                     return_intermediates: bool = False):
+    """The compiled registration program (counterpart of
+    ``buffer_tpu/pipeline/registration.py:305``'s ``jax.jit`` of
+    ``register_pair``): returns ``fn(inputs, draws)``, which returns what
+    :func:`register_pair` returns for the same inputs and draws (with
+    ``return_intermediates``, also clones of its intermediates dict).
+
+    On the card (the default) the pair runs as CUDA graphs, captured once
+    for each input signature (shapes, dtypes, which fields are None) on
+    the first call, after an eager warm-up whose result that call returns;
+    every later call replays them.  The graphs read the model's parameters
+    and buffers in place: loading weights in place (``load_state_dict``)
+    carries over, replacing a tensor makes the next call raise.  A capture
+    that fails raises; nothing falls back to eager.  On the CPU ``fn`` runs
+    :func:`register_pair`, the same front and tail, eagerly."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return lambda inputs, draws: register_pair(
+            model, inputs, draws, device=dev,
+            return_intermediates=return_intermediates)
+    programs = {}
+
+    def fn(inputs: PairInputs, draws: Draws):
+        _check_model(model, dev)
+        key = _signature(inputs, draws)
+        if key not in programs:
+            program = _GraphProgram(model, dev, return_intermediates, inputs,
+                                    draws)
+            programs[key] = program
+            return program.first
+        return programs[key](inputs, draws)
+
+    fn.programs = programs
+    return fn

@@ -50,11 +50,14 @@ SNAPS = {
 def run_bucket(model, cfg, pair_gen: Callable, n_pairs: int, seed: int,
                rte_th: float, rre_th: float, label: str, gt_check=None,
                per_pair: Optional[list] = None,
-               draws_fn: Optional[Callable] = None, device=None):
+               draws_fn: Optional[Callable] = None, device=None,
+               register_fn: Optional[Callable] = None):
     """Registers ``n_pairs`` pairs of ``pair_gen(cfg, rs, i) -> (inputs, T,
     desc)`` drawing from ``RandomState(seed)``, pair i with
     ``draws_fn(i)`` (default: a generator seeded with i, as the JAX script
-    keys pair i with ``PRNGKey(i)``), and returns (recall, pairs).
+    keys pair i with ``PRNGKey(i)``), through ``register_fn`` (default: a
+    :func:`~buffer_tpu_torch.pipeline.registration.make_register_fn`
+    program of the model), and returns (recall, pairs).
 
     ``gt_check`` = (max_dist, rte_tol, rre_tol, med_tol) cross-checks each
     pair's ground truth by host ICP before it is registered: a correction
@@ -68,6 +71,8 @@ def run_bucket(model, cfg, pair_gen: Callable, n_pairs: int, seed: int,
     from buffer_tpu_torch.pipeline import registration
 
     dev = resolve_device(device)
+    if register_fn is None:
+        register_fn = registration.make_register_fn(model, device=dev)
     rs = np.random.RandomState(seed)
     states, gt_meds = [], []
     for i in range(n_pairs):
@@ -86,7 +91,7 @@ def run_bucket(model, cfg, pair_gen: Callable, n_pairs: int, seed: int,
         draws = (draws_fn(i) if draws_fn is not None else
                  registration.make_draws(
                      cfg, torch.Generator(device=dev).manual_seed(i), dev))
-        res = registration.register_pair(model, inputs, draws, device=dev)
+        res = register_fn(inputs, draws)
         rte, rre = rte_rre(res.pose.cpu().numpy().astype(np.float64),
                            np.asarray(T, np.float64))
         ok = rte < rte_th and rre < rre_th
@@ -204,6 +209,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from buffer_tpu_torch import resolve_device
     from buffer_tpu_torch.config import make_cfg, shrink_static
+    from buffer_tpu_torch.pipeline import registration
     from buffer_tpu_torch.scripts.test import load_model
 
     if args.exact:
@@ -230,9 +236,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     gt_check = None if args.no_check_gt else GT_CHECK[args.config]
     per_pair = [] if args.per_pair_json else None
+    register_fn = registration.make_register_fn(model, device=dev)
     run = lambda gen, n, seed, rre_th, label: run_bucket(
         model, cfg, gen, n, seed, 0.3, rre_th, label, gt_check=gt_check,
-        per_pair=per_pair, device=dev)
+        per_pair=per_pair, device=dev, register_fn=register_fn)
     buckets = {}
     if args.config == "3DMatch":
         r_hi = r_lo = None

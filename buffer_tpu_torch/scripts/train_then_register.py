@@ -108,8 +108,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               flush=True)
     train_s = time.time() - t0
 
-    # the held-out pairs with the trained weights, and the stage diagnosis
+    # the held-out pairs with the trained weights, and the stage diagnosis,
+    # through the compiled program with its intermediates (the JAX script
+    # jits register_pair(..., return_intermediates=True))
     model.eval()
+    register = registration.make_register_fn(model, device=dev,
+                                             return_intermediates=True)
     states = []
     diag = {"mutual": [], "correct_match_rate": [], "axis_cos": [],
             "vote_inliers": []}
@@ -117,9 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     t1 = time.time()
     for i, (inputs, T) in enumerate(eval_pairs):
         gen = torch.Generator(device=dev).manual_seed(1000 + i)
-        res, inter = registration.register_pair(
-            model, inputs, registration.make_draws(cfg, gen, dev), device=dev,
-            return_intermediates=True)
+        res, inter = register(inputs, registration.make_draws(cfg, gen, dev))
         rte, rre = rte_rre(res.pose.cpu().numpy().astype(np.float64),
                            np.asarray(T, np.float64))
         ok = rte < 0.3 and rre < 15.0

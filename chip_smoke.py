@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives sixteen paths, each with every kernel launch counter set to 0
+2. Drives eighteen paths, each with every kernel launch counter set to 0
    just before it and read just after (in each rank's own process for the
    data-parallel ones); every kernel of a path must have run on every pair
    (or step) of it, as often as the path's table says:
@@ -25,6 +25,20 @@
      patches) on the main path's first 2 pairs, the first a warm-up;
    * the single-cloud FPS entry point ``ops.sampling.farthest_point_sample``
      on the main path's first source cloud;
+   * "3DMatch program" and "KITTI program": the compiled registration
+     program (``pipeline.registration.make_register_fn``, CUDA graphs of
+     the front and of each RANSAC/IRLS tail) on the main path's 3 pairs and
+     the KITTI path's 2, with their draws, twice (the first pass warms and
+     captures, the second replays): every call launches the path's table,
+     every result bit-equal to ``register_pair``'s and unchanged by the
+     calls after it, one replay profiled (``torch.profiler``: each kernel's
+     ``__global__`` names as often as its counter rose); warm ms/pair of
+     the program and of ``register_pair`` side by side (6 calls each),
+     capture seconds, host dispatches a pair, device ms of a replay.  Then
+     one 3DMatch pair each through programs of the boost tail
+     (``low_match_th`` above any count), the base tail, ``fused_desc =
+     False`` and device levels, each replay bit-equal to its eager pair;
+     weights loaded in place replay, a replaced parameter raises;
    * "3DMatch train": stage-sequential training at the same full width
      (``pos_num = 512`` positive pairs a step, 512-point patches, 420 SPT
      anchors, ``voxel_sample = 10``) on the main path's first 2 pairs with
@@ -44,10 +58,12 @@
      which the loader's pair mining turns into 2 pairs, ground truth refined
      by ICP).  Each tree runs with seeded random weights written as a
      reference snapshot (``--torch-weights``), and the 3DMatch tree also
-     with the checkpoints of "3DMatch train" (``--weights``).  Every pair
-     must launch the path's kernels (counts read around each pair); the
-     loaded model must equal the files; the first pair's pose must equal
-     ``register_pair`` on the same inputs and draws bit for bit;
+     with the checkpoints of "3DMatch train" (``--weights``); the harness
+     registers through its ``make_register_fn`` program.  Every pair
+     must launch the path's kernels (counts read around each call); the
+     loaded model must equal the files; every pair's result (the first the
+     program's warm-up, the others replays) must equal ``register_pair``
+     on the same inputs and draws bit for bit;
      ``est.log`` must read back as the inverse poses (1e-6); recall, TE,
      RE and pairs must match the per-pair records, the registration recall
      lie in [0, 1].  Prints a line per run with the harness's model and
@@ -252,6 +268,21 @@ DP_TIMEOUT = 300.0
 # the synthetic evaluation's exact stack: unbanded search (the exact 1-NN
 # for both upsamples) and the sampled descriptor front
 SYNTH_EXACT_PAIR = {"nearest": 2, "fps": 1, "ball_sample_points": 1}
+# the compiled program (make_register_fn): the kernels each launch counter
+# stands for, by their __global__ names in csrc/ (a profile of a replay
+# must show each as often as its counter rose), the replays timed a
+# preset (host clock), and the CUDA runtime calls that are host dispatches
+GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
+           "bnn1": ("bnn1_pack_kernel", "bnn1_kernel"),
+           "nearest": ("nearest_kernel",), "fps": ("fps_cluster_kernel",),
+           "fps_single": ("fps_cluster_kernel",),
+           "ball_sample": ("ball_pack_kernel", "ball_kernel"),
+           "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
+           "spt_pooled": ("spt_kernel",)}
+PROGRAM_TIMED = 6
+DISPATCH_APIS = (r"(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|"
+                 r"cuLaunchKernelEx|cudaGraphLaunch|cudaMemcpyAsync|"
+                 r"cudaMemsetAsync)(_v\d+)?")
 
 
 def card_line() -> str:
@@ -795,47 +826,57 @@ def write_kitti_tree(root: str, seed: int, seq: int = 8,
 
 
 @contextlib.contextmanager
-def recorded_eval(calls: list):
-    """Within the block every ``register_pair`` of the eval harness is
-    recorded in ``calls`` with the launches it made and its milliseconds
-    (host clock up to a synchronize)."""
+def recorded_programs(mod, calls: list):
+    """Within the block every registration program that
+    ``mod.make_register_fn`` makes records each of its calls in ``calls``:
+    the model, inputs, draws, the ``RegistrationResult``, the milliseconds
+    (host clock up to a synchronize) and the launches it made."""
     import torch
-    from buffer_tpu_torch.eval import harness
+    from buffer_tpu_torch import resolve_device
     from buffer_tpu_torch.kernels import cuda
-    fn = harness.register_pair
+    from buffer_tpu_torch.pipeline.registration import RegistrationResult
+    make = mod.make_register_fn
 
-    def recorded(model, inputs, draws, device=None):
-        before = cuda.launch_counts()
-        t0 = time.perf_counter()
-        res = fn(model, inputs, draws, device=device)
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-        after = cuda.launch_counts()
-        calls.append({"model": model, "inputs": inputs, "draws": draws,
-                      "result": res, "ms": ms,
-                      "launches": {k: after[k] - before[k] for k in after}})
-        return res
+    def recording(model, device=None, **kw):
+        fn = make(model, device=device, **kw)
+        dev = resolve_device(device)
 
-    harness.register_pair = recorded
+        def recorded(inputs, draws):
+            before = cuda.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(inputs, draws)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            after = cuda.launch_counts()
+            res = out if isinstance(out, RegistrationResult) else out[0]
+            calls.append({"model": model, "inputs": inputs, "draws": draws,
+                          "result": res, "ms": ms,
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return out
+
+        return recorded
+
+    mod.make_register_fn = recording
     try:
         yield
     finally:
-        harness.register_pair = fn
+        mod.make_register_fn = make
 
 
 def run_entry(argv, plain: bool = False):
-    """``scripts.test.main(argv)`` with every harness ``register_pair``
-    recorded, the counts set to 0 just before; with ``plain`` the kernels'
-    plain versions at their call sites.  Returns (summary, records, counts,
-    wall seconds)."""
+    """``scripts.test.main(argv)`` with every call of the harness's
+    registration program recorded, the counts set to 0 just before; with
+    ``plain`` the kernels' plain versions at their call sites (captured
+    into the program).  Returns (summary, records, counts, wall seconds)."""
+    from buffer_tpu_torch.eval import harness
     from buffer_tpu_torch.kernels import cuda, sites
     from buffer_tpu_torch.scripts import test as entry
     calls = []
     cuda.reset_launches()
     t0 = time.perf_counter()
-    with recorded_eval(calls), (sites.plain_versions() if plain
-                                else contextlib.nullcontext()):
+    with recorded_programs(harness, calls), (
+            sites.plain_versions() if plain else contextlib.nullcontext()):
         out = entry.main(argv)
     return out, calls, cuda.launch_counts(), time.perf_counter() - t0
 
@@ -866,11 +907,13 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
             if not torch.equal(state[k].cpu(), v):
                 raise RuntimeError(f"{name}: loaded {k} differs from the file")
     first = calls[0]
-    again = registration.register_pair(first["model"], first["inputs"],
-                                       first["draws"], device=dev)
-    if not torch.equal(again.pose, first["result"].pose):
-        raise RuntimeError(f"{name}: run_eval's first pose is not "
-                           "register_pair's on the same inputs and draws")
+    # the first pair is the program's warm-up, the others its replays
+    for j, c in enumerate(calls):
+        again = registration.register_pair(c["model"], c["inputs"],
+                                           c["draws"], device=dev)
+        if not results_equal(again, c["result"]):
+            raise RuntimeError(f"{name}: run_eval's result of pair {j} is not "
+                               "register_pair's on the same inputs and draws")
     poses = [c["result"].pose.cpu().numpy().astype(np.float64) for c in calls]
     scene = sorted(os.listdir(log_dir))
     if len(scene) != 1:
@@ -1194,34 +1237,23 @@ def train_entry_paths(dev, kitti_gen) -> dict:
 def ttr_path(dev) -> dict:
     """``scripts.train_then_register.main`` at TTR_ARGS (a plumbing gate; no
     recall bar): every held-out pair launches the kernels of small_cfg's
-    dispatch (counts read around each ``register_pair``); recall and
+    dispatch (counts read around each call of its registration program,
+    ``make_register_fn`` with intermediates); recall and
     diagnosis finite; the JSON record written."""
-    import torch
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline import registration
     from buffer_tpu_torch.scripts import train_then_register as ttr
     base = str(cuda.BUILD_DIR / "ttr_smoke")
     shutil.rmtree(base, ignore_errors=True)
     rec_path = os.path.join(base, "record.json")
-    fn, pairs = registration.register_pair, []
-
-    def recorded(*args, **kw):
-        before = cuda.launch_counts()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        after = cuda.launch_counts()
-        pairs.append({k: after[k] - before[k] for k in after})
-        return out
-
+    calls = []
     cuda.reset_launches()
     t0 = time.time()
-    registration.register_pair = recorded
-    try:
+    with recorded_programs(registration, calls):
         rc = ttr.main([*TTR_ARGS, "--device", str(dev), "--out", base,
                        "--json", rec_path])
-    finally:
-        registration.register_pair = fn
     wall = time.time() - t0
+    pairs = [c["launches"] for c in calls]
     with open(rec_path) as f:
         rec = json.load(f)
     n_eval = int(TTR_ARGS[TTR_ARGS.index("--eval-pairs") + 1])
@@ -1284,6 +1316,197 @@ def device_levels_path(dev, cfg, model, pair, draws, host_line) -> dict:
     print(json.dumps({"device_levels": {k: out[k] for k in (
         "device_valid_points", "banded_recall", "pyramid_ms",
         "host_levels_pyramid_ms")}}))
+    return out
+
+
+def results_equal(got, want) -> bool:
+    """Every field of two ``RegistrationResult``s bit-equal."""
+    import torch
+    return all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler``: (its output, kernel
+    count by __global__ name of GLOBALS, all kernels launched, host
+    dispatches, the kernels' device ms)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from buffer_tpu_torch.utils.profiling import kernel_events
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = kernel_events(prof)
+    names = sorted({n for ns in GLOBALS.values() for n in ns})
+    seen = {n: sum(1 for e in kernels if re.search(rf"\b{n}\b", e.name))
+            for n in names}
+    dispatches = sum(1 for e in prof.events()
+                     if re.fullmatch(DISPATCH_APIS, e.name))
+    return (out, seen, len(kernels), dispatches,
+            sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+
+
+def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
+    """The compiled program (``make_register_fn``) on a path's pairs and
+    draws, every count set to 0 just before and read just after: two
+    passes over the pairs (the first warms and captures, the second
+    replays), every call launching the path's table and every replay
+    bit-equal to ``eager`` (``register_pair``'s results on the same pairs
+    and draws); every result still holding its values after the calls that
+    follow it; one replay under ``torch.profiler`` showing each kernel as
+    often as the counters rose.  Prints warm ms/pair of the program and of
+    ``register_pair`` by the host clock (PROGRAM_TIMED calls each, in turn
+    over the pairs), the capture seconds, host dispatches a pair (CUDA
+    runtime launches and copies, program and eager) and device ms of a
+    replay (CUDA events around the call; the profile's kernel ms)."""
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
+    table = PER_PAIR[path.replace(" program", "")]
+    fn = registration.make_register_fn(model, device=dev)
+    cuda.reset_launches()
+    kept, first_ms = [], None
+    for n_pass in range(2):
+        for i, (inputs, dr) in enumerate(zip(pairs, draws)):
+            before = cuda.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(inputs, dr)
+            torch.cuda.synchronize()
+            if first_ms is None:
+                first_ms = 1e3 * (time.perf_counter() - t0)
+            after = cuda.launch_counts()
+            check_launches(path, {k: after[k] - before[k] for k in after}, table)
+            if not results_equal(res, eager[i]):
+                raise RuntimeError(f"{path}: pass {n_pass} pair {i} differs "
+                                   "from register_pair")
+            kept.append((res, i))
+    counts = cuda.launch_counts()
+    if counts != {k: 2 * len(pairs) * table.get(k, 0) for k in counts}:
+        raise RuntimeError(f"{path}: launches {counts} over {2 * len(pairs)} "
+                           "calls")
+    for res, i in kept:
+        if not results_equal(res, eager[i]):
+            raise RuntimeError(f"{path}: a result changed in a later call")
+    (program,) = fn.programs.values()
+
+    def timed(call, n):
+        ms = []
+        for k in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(pairs[k % len(pairs)], draws[k % len(pairs)])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    fn_ms = timed(fn, PROGRAM_TIMED)
+    eager_ms = timed(lambda p, d: registration.register_pair(model, p, d,
+                                                             device=dev),
+                     PROGRAM_TIMED)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(pairs[0], draws[0])
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end)
+    before = cuda.launch_counts()
+    res, seen, n_kernels, dispatches, kernel_ms = profile_call(
+        lambda: fn(pairs[0], draws[0]))
+    rose = {k: v - before[k] for k, v in cuda.launch_counts().items()}
+    want = {}
+    for k, v in rose.items():
+        for name in GLOBALS[k]:
+            want[name] = want.get(name, 0) + v
+    if ({n: c for n, c in seen.items() if c or n in want} != want
+            or not results_equal(res, eager[0])):
+        raise RuntimeError(f"{path}: the profiled replay shows {seen}, its "
+                           f"counters rose {rose}")
+    *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
+        lambda: registration.register_pair(model, pairs[0], draws[0],
+                                           device=dev))
+    line = {"path": path, "pairs": len(pairs), "calls": 2 * len(pairs),
+            "bit_equal_to_eager": True, "first_call_ms": first_ms,
+            "capture_s": program.capture_s,
+            "ms_per_pair": sum(fn_ms) / len(fn_ms), "per_call_ms": fn_ms,
+            "eager_ms_per_pair": sum(eager_ms) / len(eager_ms),
+            "eager_per_call_ms": eager_ms,
+            "dispatches_per_pair": dispatches,
+            "eager_dispatches_per_pair": eager_dispatches,
+            "replay_device_ms": replay_ms, "replay_kernel_ms": kernel_ms,
+            "eager_kernel_ms": eager_kernel_ms,
+            "kernels_per_replay": n_kernels, "eager_kernels": eager_kernels,
+            "profiled_kernels": {n: c for n, c in seen.items() if c},
+            "launches": counts, "tails": sorted(program.tails)}
+    print(json.dumps(line))
+    return line
+
+
+def program_variants(dev, cfg, pairs, draws, smodel, sampled_eager) -> dict:
+    """One 3DMatch pair through programs of their own, each warmed and
+    captured, then replayed and held bit-equal to ``register_pair`` under
+    its config: the boost tail (``low_match_th`` above any mutual count),
+    the base tail (``low_match_th = 0``), ``fused_desc = False`` and device
+    levels (``lvl1 = None``).  Then the model's weights: loaded in place
+    (``load_state_dict``) the program replays, a replaced parameter makes
+    the next call raise."""
+    import torch
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.pipeline import registration
+    out = {}
+
+    def held(name, model, inputs, dr, want=None):
+        fn = registration.make_register_fn(model, device=dev)
+        fn(inputs, dr)
+        got = fn(inputs, dr)
+        if want is None:
+            want = registration.register_pair(model, inputs, dr, device=dev)
+        if not results_equal(got, want):
+            raise RuntimeError(f"program {name}: the replay differs from "
+                               "register_pair")
+        (program,) = fn.programs.values()
+        out[name] = {"num_mutual": int(got.num_mutual),
+                     "boost": registration.boost_taken(model.cfg,
+                                                       got.num_mutual),
+                     "capture_s": program.capture_s}
+        return fn
+
+    for name, th in (("boost tail", 10 ** 6), ("base tail", 0)):
+        c = cfg.replace(static=dataclasses.replace(cfg.static, low_match_th=th))
+        model = BufferModel(c, seed=0).to(dev).eval()
+        fn = held(name, model, pairs[0], draws[0])
+        if out[name]["boost"] != (th > 0):
+            raise RuntimeError(f"program {name}: took the other tail")
+    held("fused_desc=False", smodel, pairs[0], draws[0], sampled_eager)
+    levels = pairs[0]._replace(lvl1=None, lvl1_mask=None, lvl2=None,
+                               lvl2_mask=None)
+    held("device levels", BufferModel(cfg, seed=0).to(dev).eval(), levels,
+         draws[0])
+
+    # weights: in place carries over; a new tensor raises (model: the base
+    # tail's)
+    want = registration.register_pair(model, pairs[0], draws[0], device=dev)
+    model.load_state_dict(BufferModel(model.cfg, seed=0).state_dict())
+    if not results_equal(fn(pairs[0], draws[0]), want):
+        raise RuntimeError("program: a replay after load_state_dict differs")
+    conv = model.Desc.pnt_layer[0]
+    weight = conv.weight
+    conv.weight = torch.nn.Parameter(weight.detach().clone())
+    try:
+        fn(pairs[0], draws[0])
+    except RuntimeError as e:
+        out["swapped_parameter"] = str(e)
+    else:
+        raise RuntimeError("program: a replaced parameter did not raise")
+    finally:
+        conv.weight = weight
+    if not results_equal(fn(pairs[0], draws[0]), want):
+        raise RuntimeError("program: the restored parameter does not replay")
+    print(json.dumps({"program_variants": out}))
     return out
 
 
@@ -1464,10 +1687,10 @@ def synthetic_path(roots: dict) -> dict:
     """``scripts.synthetic_eval.main`` with the eval phase's seeded snapshots:
     2 + 2 rooms (high and low overlap), 2 KITTI scenes, and one room with
     ``--exact``; the GT cross-check's gates pass, every pair launches its
-    path's kernels (counts read around each ``register_pair``), the JSON
-    record's buckets agree with the per-pair lines.  Prints each record and
-    ms/pair (host clock around each synchronized ``register_pair``)."""
-    import torch
+    path's kernels (counts read around each call of the script's
+    ``make_register_fn`` program), the JSON record's buckets agree with the
+    per-pair lines.  Prints each record and ms/pair (host clock around each
+    synchronized call, the first, with warm-up and capture, left out)."""
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline import registration
     from buffer_tpu_torch.scripts import synthetic_eval
@@ -1476,17 +1699,7 @@ def synthetic_path(roots: dict) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     snaps = os.path.dirname(roots["3DMatch"])
-    fn, lines = registration.register_pair, []
-
-    def recorded(*args, **kw):
-        before = cuda.launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        calls.append((1e3 * (time.perf_counter() - t0),
-                      {k: v - before[k] for k, v in cuda.launch_counts().items()}))
-        return out
+    lines = []
 
     for name, preset, extra, n_pairs, table in (
             ("3DMatch", "3DMatch", ["--pairs", "2", "--low-pairs", "2"], 4,
@@ -1495,20 +1708,18 @@ def synthetic_path(roots: dict) -> dict:
             ("3DMatch --exact", "3DMatch",
              ["--pairs", "1", "--exact", "--buckets", "high"], 1,
              SYNTH_EXACT_PAIR)):
-        calls = []
+        records = []
         rec_path = os.path.join(base, f"{name.replace(' ', '')}.json")
         pp_path = rec_path + "l"
         cuda.reset_launches()
         t0 = time.time()
-        registration.register_pair = recorded
-        try:
+        with recorded_programs(registration, records):
             rc = synthetic_eval.main(
                 ["--config", preset, *extra, "--torch-weights",
                  os.path.join(snaps, f"snapshot_{preset}"), "--json", rec_path,
                  "--per-pair-json", pp_path])
-        finally:
-            registration.register_pair = fn
         wall = time.time() - t0
+        calls = [(r["ms"], r["launches"]) for r in records]
         with open(rec_path) as f:
             (rec,) = [json.loads(ln) for ln in f]
         with open(pp_path) as f:
@@ -1627,6 +1838,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     kpairs, kposes_gt, kdraws, kprep_s = pairs_of(
         kcfg, lidar_pair, range(KITTI_SEED, KITTI_SEED + n_kitti))
     kcounts, *rest = drive("KITTI", kmodel, dev, kpairs, kdraws)
+    kitti_results = rest[1]
     kitti_line = path_line("KITTI", kcfg, kcounts, *rest, kprep_s, kpairs[0])
     lap("KITTI")
 
@@ -1647,10 +1859,20 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     smodel = BufferModel(scfg, seed=0).to(dev)
     scounts, *rest = drive("3DMatch fused_desc=False", smodel, dev, pairs[:2],
                            draws[:2])
+    sampled_results = rest[1]
     sampled_line = path_line("3DMatch fused_desc=False", scfg, scounts, *rest,
                              prep_s, pairs[0])
 
     lap("knn_band=0 and fused_desc=False")
+
+    # ---- the compiled program (make_register_fn) on the same pairs ------
+    programs = [program_path("3DMatch program", dev, cfg, model, pairs, draws,
+                             main_results),
+                program_path("KITTI program", dev, kcfg, kmodel, kpairs,
+                             kdraws, kitti_results)]
+    variants = program_variants(dev, cfg, pairs, draws, smodel,
+                                sampled_results[0])
+    lap("3DMatch program and KITTI program")
 
     # ---- the first pair of each preset with every call recorded ---------
     res_k, inter_k, calls = recorded_run(model, dev, pairs[0], draws[0])
@@ -2023,6 +2245,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     return {"card": card_line(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
+            "programs": programs, "program_variants": variants,
             "device_levels": levels, "train_entry": train_entry,
             "presets": presets, "train_then_register": ttr,
             "eval": evaluation,

@@ -630,3 +630,91 @@ def test_dp_train_step_world_2_on_card(card, stage):
     ref = model.state_dict()
     for k, v in got[0]["state"].items():
         torch.testing.assert_close(v, ref[k].cpu(), rtol=0, atol=1e-6, msg=k)
+
+
+def _program_pairs(plan, card):
+    """(config with the low-match budget on, two pairs) of ``plan``."""
+    if plan == "tiny":
+        cfg = tiny_cfg()
+        pairs = [_tiny_pair(cfg, card), _tiny_pair(cfg, card, 800, 0.5)]
+    else:
+        cfg = threedmatch_cfg()
+        pairs = [surface_pair(cfg, s, card)[0] for s in (0, 1)]
+    cfg = cfg.replace(static=dataclasses.replace(cfg.static,
+                                                 low_match_boost=True))
+    return cfg, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["tiny", "3DMatch"])
+@pytest.mark.parametrize("th", [0, 10 ** 6])
+def test_program_equals_register_pair(card, plan, th):
+    """``make_register_fn`` on the card: the first call (warm-up, capture)
+    and the replays over two pairs bit-equal to ``register_pair`` on the
+    same inputs and draws, with every pair on the base tail
+    (``low_match_th = 0``) or on the boost tail (above any mutual count);
+    a result keeps its values through the calls after it; a replay's
+    launch counts are the eager pair's."""
+    cuda.build_all()
+    cfg, pairs = _program_pairs(plan, card)
+    cfg = cfg.replace(static=dataclasses.replace(cfg.static, low_match_th=th))
+    model = BufferModel(cfg, seed=0).to(card)
+    gen = torch.Generator(card).manual_seed(0)
+    draws = [registration.make_draws(cfg, gen, card) for _ in pairs]
+    cuda.reset_launches()
+    want = [registration.register_pair(model, p, d) for p, d in zip(pairs, draws)]
+    eager = cuda.launch_counts()
+    fn = registration.make_register_fn(model)
+    got = []
+    for _ in range(2):
+        for p, d, w in zip(pairs, draws, want):
+            cuda.reset_launches()
+            got.append((fn(p, d), w))
+            assert cuda.launch_counts() == {k: v // 2 for k, v in eager.items()}
+            assert all(torch.equal(a, b) for a, b in zip(*got[-1]))
+            assert registration.boost_taken(cfg, got[-1][0].num_mutual) == (th > 0)
+    for res, w in got:
+        assert all(torch.equal(a, b) for a, b in zip(res, w))
+    (program,) = fn.programs.values()
+    assert sorted(program.tails) == [False, True]
+
+
+@pytest.mark.cuda
+def test_program_intermediates_equal_register_pair(card):
+    """With ``return_intermediates`` a replay returns ``register_pair``'s
+    intermediates dict bit for bit, as copies of its own."""
+    cfg, (pair, _) = _program_pairs("tiny", card)
+    model = BufferModel(cfg, seed=0).to(card)
+    draws = registration.make_draws(cfg, torch.Generator(card).manual_seed(1),
+                                    card)
+    fn = registration.make_register_fn(model, return_intermediates=True)
+    fn(pair, draws)
+    res, inter = fn(pair, draws)
+    want_res, want = registration.register_pair(model, pair, draws,
+                                                 return_intermediates=True)
+    assert all(torch.equal(a, b) for a, b in zip(res, want_res))
+    leaves = torch.utils._pytree.tree_leaves
+    for name in want:
+        assert all(torch.equal(a, b) for a, b in
+                   zip(leaves(inter[name]), leaves(want[name]))), name
+    again, _ = fn(pair, draws)
+    assert again.pose.data_ptr() != res.pose.data_ptr()
+
+
+@pytest.mark.cuda
+def test_program_raises_on_swapped_parameters(card):
+    """Weights loaded in place carry over into the replays; a replaced
+    parameter tensor makes the next call raise (no silent stale graph)."""
+    cfg, (pair, _) = _program_pairs("tiny", card)
+    model = BufferModel(cfg, seed=0).to(card)
+    draws = registration.make_draws(cfg, torch.Generator(card).manual_seed(2),
+                                    card)
+    fn = registration.make_register_fn(model)
+    fn(pair, draws)
+    model.load_state_dict(BufferModel(cfg, seed=5).state_dict())
+    want = registration.register_pair(model, pair, draws)
+    assert all(torch.equal(a, b) for a, b in zip(fn(pair, draws), want))
+    conv = model.Desc.pnt_layer[0]
+    conv.weight = torch.nn.Parameter(conv.weight.detach().clone())
+    with pytest.raises(RuntimeError, match="captured"):
+        fn(pair, draws)
