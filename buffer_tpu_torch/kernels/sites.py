@@ -36,3 +36,9 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def plain_active() -> bool:
+    """Whether :func:`plain_versions` is in force: a captured graph bakes
+    the kernel-or-plain choice in, so it keys the compiled programs."""
+    return any(getattr(mod, name) is plain for mod, name, plain in call_sites())

@@ -336,6 +336,24 @@ def _clone(x):
     return x
 
 
+def capture_graph(run, pool):
+    """Captures ``run()`` as a CUDA graph in memory pool ``pool``; returns
+    (the graph, ``run``'s outputs, the kernels' launch counts of one
+    replay).  The counts are recorded at capture and taken back, since a
+    capture launches nothing; a caller adds them on each replay."""
+    graph = torch.cuda.CUDAGraph()
+    before = cuda.launch_counts()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = run()
+    finally:
+        after = cuda.launch_counts()
+        launches = {k: n - before[k] for k, n in after.items()
+                    if n != before[k]}
+        cuda.add_launches({k: -n for k, n in launches.items()})
+    return graph, out, launches
+
+
 def _state_ptrs(model: BufferModel) -> tuple:
     return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
 
@@ -390,25 +408,12 @@ class _GraphProgram:
 
             t0 = time.perf_counter()
             pool = torch.cuda.graph_pool_handle()
-
-            def capture(run):
-                graph = torch.cuda.CUDAGraph()
-                before = cuda.launch_counts()
-                try:
-                    with torch.cuda.graph(graph, pool=pool):
-                        out = run()
-                finally:
-                    after = cuda.launch_counts()
-                    launches = {k: n - before[k] for k, n in after.items()
-                                if n != before[k]}
-                    cuda.add_launches({k: -n for k, n in launches.items()})
-                return graph, out, launches
-
             self.front_graph, (self.front, self.inter), self.front_launches = \
-                capture(lambda: pair_front(model, self.inputs, self.draws))
-            self.tails = {b: capture(lambda b=b: pair_tail(
-                self.cfg, self.front, *tail_budget(self.cfg, self.draws, b)))
-                for b in budgets}
+                capture_graph(lambda: pair_front(model, self.inputs,
+                                                 self.draws), pool)
+            self.tails = {b: capture_graph(lambda b=b: pair_tail(
+                self.cfg, self.front, *tail_budget(self.cfg, self.draws, b)),
+                pool) for b in budgets}
             self.capture_s = time.perf_counter() - t0   # host seconds
 
     def _load(self, inputs: PairInputs, draws: Draws) -> None:

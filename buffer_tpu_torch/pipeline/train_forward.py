@@ -104,7 +104,8 @@ def cal_so2_gt(s_rand_axis, s_R, t_R, gt_R, azi_n: int, integer: bool,
     t_rand = torch.einsum("pj,pjk->pk", t_rand, t_R)
     if aug_rotation is not None:
         t_rand = torch.einsum("pj,pkj->pk", t_rand, aug_rotation)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=s_rand.dtype, device=s_rand.device)
+    # a device fill, not a tensor of host data (capture-safe)
+    z = torch.eye(3, dtype=s_rand.dtype, device=s_rand.device)[2]
     proj = t_rand - torch.sum(t_rand * z, dim=-1, keepdim=True) * z
     proj = safe_normalize(proj, dim=-1)
     cos = torch.sum(s_rand * proj, dim=-1) / torch.clamp(

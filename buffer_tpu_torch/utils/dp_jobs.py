@@ -92,13 +92,17 @@ def train_job(payload: Dict[str, Any]) -> Dict[str, Any]:
     a list of ``TrainDraws`` by rank) on this rank's pair of ``batches``
     (a list of steps, each a list of ``TrainBatch`` by rank).  With
     ``deterministic``, under PyTorch's deterministic algorithms; with
-    ``adam``, each step also returns Adam's state.  Returns by stage each
+    ``adam``, each step also returns Adam's state.  With ``eager``, each
+    step first runs ``step.eager`` (the step operator by operator) and
+    records it under ``"eager"`` the same way (Adam's state included),
+    then puts the model and Adam back in place and runs the step itself.
+    Returns by stage each
     step's loss, stats, the active stage's state after it (parameters and
     running statistics), the keys of the other stages it changed, its
     launches and ms (host clock around the synchronized step), and the
     stage's peak device memory."""
     from buffer_tpu_torch.train.trainer import (make_dp_train_step,
-                                                make_optimizer)
+                                                make_optimizer, step_tensors)
     dev = rank_device(payload["device"])
     rank = dist.get_rank()
     cfg = payload["cfg"]
@@ -115,12 +119,11 @@ def train_job(payload: Dict[str, Any]) -> Dict[str, Any]:
                                   device=dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        steps = []
-        for batches, draws in zip(payload["batches"], payload["draws"][stage]):
+        def run(fn, batch, draws):
             before = _launches()
             _synchronize(dev)
             t0 = time.perf_counter()
-            loss, stats = step(batches[rank], draws[rank])
+            loss, stats = fn(batch, draws)
             _synchronize(dev)
             ms = 1e3 * (time.perf_counter() - t0)
             after = _launches()
@@ -135,9 +138,25 @@ def train_job(payload: Dict[str, Any]) -> Dict[str, Any]:
                        and not torch.equal(v, payload["state"][k])],
                    "launches": {k: after[k] - before[k] for k in after},
                    "ms": ms}
-            if payload.get("adam"):
+            if payload.get("adam") or payload.get("eager"):
                 rec["adam"] = [cpu(optimizer.state[p]) for g in
                                optimizer.param_groups for p in g["params"]]
+            return rec
+
+        steps = []
+        for batches, draws in zip(payload["batches"], payload["draws"][stage]):
+            b, d = batches[rank], draws[rank]
+            eager = None
+            if payload.get("eager"):
+                held = step_tensors(model, optimizer)
+                start = [t.detach().clone() for t in held]
+                eager = run(step.eager, b, d)
+                with torch.no_grad():
+                    for t, s0 in zip(held, start):
+                        t.copy_(s0)
+            rec = run(step, b, d)
+            if eager is not None:
+                rec["eager"] = eager
             steps.append(rec)
         out["stages"][stage] = {
             "steps": steps,

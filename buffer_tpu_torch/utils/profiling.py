@@ -3,7 +3,7 @@ step, on the card.
 
     python -m buffer_tpu_torch.utils.profiling [--config {3DMatch,KITTI}]
         [--knn-band N] [--device-levels] [--pairs N] [--out DIR]
-        [--train-stage {Ref,Desc,Keypt,Inlier}]
+        [--train-stage {Ref,Desc,Keypt,Inlier} [--program]]
 
 Runs ``register_pair`` (the preset at full width with its own
 ``knn_band`` unless ``--knn-band`` says otherwise, seeded random weights;
@@ -25,7 +25,11 @@ With ``--train-stage`` it profiles ``train/trainer.train_step`` of that
 stage on the first pair with its ground-truth pose (one warm-up step, then
 ``--pairs`` steps without and with the profiler, the same draws each
 step): wall and device ms per step, busy share, launches and the top
-operators; the trace goes to ``DIR/profile_train_<stage>.json.gz``.
+operators; the trace goes to ``DIR/profile_train_<stage>.json.gz``.  With
+``--program`` the step is ``make_train_step``'s compiled one (the warm-up
+is its first call and capture; the steps are graph replays), so that the
+replay's host and device time read side by side with the eager step's;
+its trace goes to ``DIR/profile_train_<stage>_program.json.gz``.
 """
 
 from __future__ import annotations
@@ -96,13 +100,17 @@ def profile_train(args, cfg, model, inputs, T, dev) -> int:
     from torch.profiler import ProfilerActivity, profile
     from buffer_tpu_torch.pipeline.train_forward import make_train_draws
     from buffer_tpu_torch.train.trainer import (TrainBatch, make_optimizer,
-                                                train_step)
+                                                make_train_step, train_step)
     stage, n = args.train_stage, args.pairs
     opt, _ = make_optimizer(cfg, model, stage)
     batch = TrainBatch(inputs, torch.as_tensor(T, device=dev))
     draws = make_train_draws(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     margin = 1.0 if cfg.data.dataset == "KITTI" else 1.05
-    step = lambda: train_step(model, opt, stage, batch, draws, margin, dev)
+    if args.program:
+        fn = make_train_step(model, opt, stage, margin, dev)
+        step = lambda: fn(batch, draws)
+    else:
+        step = lambda: train_step(model, opt, stage, batch, draws, margin, dev)
     step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -117,9 +125,12 @@ def profile_train(args, cfg, model, inputs, T, dev) -> int:
     kernels = kernel_events(prof)
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
     os.makedirs(args.out, exist_ok=True)
-    save_trace(prof, os.path.join(args.out, f"profile_train_{stage}.json"))
+    suffix = "_program" if args.program else ""
+    save_trace(prof, os.path.join(args.out,
+                                  f"profile_train_{stage}{suffix}.json"))
     print(json.dumps({
-        "config": args.config, "train_stage": stage, "steps": n,
+        "config": args.config, "train_stage": stage, "program": args.program,
+        "steps": n,
         "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "kernel_launches_per_step": len(kernels) / n,
@@ -149,6 +160,8 @@ def main() -> int:
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--train-stage", choices=("Ref", "Desc", "Keypt", "Inlier"),
                     default=None, help="profile this stage's training step")
+    ap.add_argument("--program", action="store_true",
+                    help="with --train-stage: the compiled step's replays")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")

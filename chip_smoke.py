@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives eighteen paths, each with every kernel launch counter set to 0
+2. Drives twenty paths, each with every kernel launch counter set to 0
    just before it and read just after (in each rank's own process for the
    data-parallel ones); every kernel of a path must have run on every pair
    (or step) of it, as often as the path's table says:
@@ -44,10 +44,26 @@
      anchors, ``voxel_sample = 10``) on the main path's first 2 pairs with
      their ground-truth poses: one ``Trainer`` per stage, Ref -> Desc ->
      Keypt -> Inlier, the others frozen, 3 train steps (the first a
-     warm-up) and 1 eval step each.  Every step's launches must equal
-     ``TRAIN_STEP``; losses finite; only the active stage's parameters
-     move, the frozen stages' running statistics stay; the best and epoch
-     checkpoints reload equal.
+     warm-up) and 1 eval step each, through the compiled steps.  Every
+     step's launches must equal ``TRAIN_STEP``; losses finite; only the
+     active stage's parameters move, the frozen stages' running statistics
+     stay; the best and epoch checkpoints reload equal.
+   * "3DMatch train program" and "KITTI train program": the compiled
+     training steps (``train.trainer.make_train_step`` /
+     ``make_eval_step``, a CUDA graph a step) stage after stage on the main
+     path's first 2 pairs and the KITTI path's 2 (``train_program_path``):
+     under deterministic algorithms 4 steps a stage (capture, replay,
+     replay after ``set_epoch_lr``, replay with a NaN pose, which Ref
+     skips) bit-equal to eager steps of a twin model (loss, stats,
+     parameters, running statistics, Adam's state) and 2 eval calls
+     bit-equal to ``eval_step``; in default mode the replay within 1e-5
+     (loss) and 2 lr (parameters) of an eager step from the same state,
+     beside two eager steps' own spread; program and eager ms/step (6
+     each), first-call ms,
+     capture s, host dispatches and device ms of a replay, a profiled
+     replay's ``__global__`` names, peak memory; a replaced parameter
+     raises.  Then ``make_optimizer``'s capturable Adam against the
+     float-rate Adam on equal gradients (1e-3 lr).
    * "eval": the evaluation path through the test entry point
      (``buffer_tpu_torch.scripts.test.main``) at the shipped presets' full
      static plans, on dataset trees the script writes into
@@ -97,13 +113,16 @@
      as the main path's table; every pose and mutual count bit-equal to
      the main path's one-process ``register_pair`` and equal on every
      rank; pairs/s at world 1 and 2 (``utils/dp_scaling.measure``).
-   * "dp train 3DMatch": ``make_dp_train_step`` at world 2 (gloo) for Ref
-     and Desc on the main path's first 2 pairs, a warm-up step and a step
-     each, under deterministic algorithms: parameters bit-equal across
-     ranks and within 1e-6 of one process's step on the mean gradient
-     (loss 1e-5), running statistics the mean of the one-pair updates,
-     only the active stage moves, every step's launches as ``TRAIN_STEP``;
-     ms/step and peak memory a rank.
+   * "dp train 3DMatch" and "dp train program": ``make_dp_train_step``
+     (two CUDA graphs around the eager all-reduce) at world 2 (gloo) for
+     Ref and Desc on the main path's first 2 pairs, 3 steps each (the
+     first the warm-up and capture), under deterministic algorithms: each
+     step bit-equal to the eager DP step from the same state on every rank
+     (``step.eager``, run first and rolled back), parameters bit-equal
+     across ranks and within 1e-6 of one process's step on the mean
+     gradient (loss 1e-5), running statistics the mean of the one-pair
+     updates, only the active stage moves, every step's launches as
+     ``TRAIN_STEP``; program and eager ms/step and peak memory a rank.
    * "dp eval 3DMatch": the test entry point as 2 ranks with the
      ``torchrun`` variables (``--dist-backend gloo``) over the eval path's
      3DMatch tree and snapshot: recall, TE, RE, pairs and est.log equal
@@ -254,7 +273,8 @@ TRAIN_ENTRY_STEPS = 3
 # held-out pairs
 TTR_ARGS = ("--train-pairs", "8", "--epochs", "1", "--eval-pairs", "4")
 # the data-parallel paths: timed rounds (after warm-up rounds) of the
-# pairs/s figure, training steps a stage (the first a warm-up), and the
+# pairs/s figure, training steps a stage (the first the program's warm-up
+# and capture, each beside the eager DP step from the same state), and the
 # launcher's time limit a launch
 DP_ITERS, DP_WARMUP = 6, 2
 # (name, world, backend, pairs, timed rounds) of "dp register 3DMatch":
@@ -263,7 +283,7 @@ DP_ITERS, DP_WARMUP = 6, 2
 DP_REGISTER_RUNS = (("world 2 gloo", 2, "gloo", 3, DP_ITERS),
                     ("world 1 gloo", 1, "gloo", 1, DP_ITERS),
                     ("world 1 nccl", 1, "nccl", 3, 0))
-DP_TRAIN_STEPS = 2
+DP_TRAIN_STEPS = 3
 DP_TIMEOUT = 300.0
 # the synthetic evaluation's exact stack: unbanded search (the exact 1-NN
 # for both upsamples) and the sampled descriptor front
@@ -684,6 +704,320 @@ def plain_train_check(stage, model, cfg, batch, draws, dev, save_dir,
         raise RuntimeError(f"{path} {stage}: kernel and plain steps disagree: "
                            f"{out}")
     return out
+
+
+def tensors_equal(a, b) -> bool:
+    """Bit for bit, NaN equal to NaN."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        return (torch.equal(nan, torch.isnan(b))
+                and torch.equal(torch.where(nan, 0, a), torch.where(nan, 0, b)))
+    return torch.equal(a, b)
+
+
+def step_state(model, optimizer) -> dict:
+    """The model's state dict and Adam's state, as copies."""
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for i, g in enumerate(optimizer.param_groups):
+        for j, p in enumerate(g["params"]):
+            sd.update({f"adam.{i}.{j}.{k}": v.clone()
+                       for k, v in optimizer.state[p].items()})
+    return sd
+
+
+def states_equal(a: dict, b: dict) -> list:
+    """The keys where two ``step_state``s differ."""
+    return [k for k in a if not tensors_equal(a[k], b[k])]
+
+
+def load_step_state(model, optimizer, sd: dict) -> None:
+    """A ``step_state`` back into the model and Adam, in place."""
+    import torch
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if not k.startswith("adam.")})
+    with torch.no_grad():
+        for i, g in enumerate(optimizer.param_groups):
+            for j, p in enumerate(g["params"]):
+                for k, v in optimizer.state[p].items():
+                    v.copy_(sd[f"adam.{i}.{j}.{k}"])
+
+
+def step_errors(a: dict, b: dict, stage: str):
+    """(max abs difference, elements differing) over ``stage``'s
+    parameters of two ``step_state``s."""
+    keys = [k for k in a if k.startswith(stage + ".") and "running" not in k
+            and "num_batches" not in k]
+    return (max(float((a[k] - b[k]).abs().max()) for k in keys),
+            sum(int((a[k] != b[k]).sum()) for k in keys))
+
+
+def adam_check(dev, cfg, model) -> dict:
+    """``make_optimizer``'s capturable Adam (tensor learning rate on the
+    card) against the float-rate Adam on the same gradients, three steps of
+    the Inlier stage at the epoch-3 rate: every parameter within 1e-3 lr,
+    the allowance ``tests/test_torch_train.py`` holds the port's Adam to
+    against optax."""
+    import copy
+    import torch
+    from buffer_tpu_torch.train import trainer as tr
+    stage = "Inlier"
+    a, b = copy.deepcopy(model), copy.deepcopy(model)
+    opt_a, lr_for_epoch = tr.make_optimizer(cfg, a, stage)
+    lr = lr_for_epoch(3)
+    tr.set_lr(opt_a, lr)
+    opt_b = torch.optim.Adam(getattr(b, stage).parameters(), lr=lr,
+                             weight_decay=cfg.optim.weight_decay)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pa, pb = list(getattr(a, stage).parameters()), list(getattr(b, stage).parameters())
+    for _ in range(3):
+        for x, y in zip(pa, pb):
+            g = torch.randn(x.shape, generator=gen, device=dev)
+            g = torch.where(torch.rand(x.shape, generator=gen, device=dev) < 0.1,
+                            torch.zeros_like(g), g)
+            x.grad, y.grad = g.clone(), g.clone()
+        opt_a.step()
+        opt_b.step()
+    err = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+    out = {"path": "adam capturable vs float lr", "stage": stage, "lr": lr,
+           "steps": 3, "param_max_abs_err": err, "err_over_lr": err / lr}
+    print(json.dumps(out))
+    if err > 1e-3 * lr:
+        raise RuntimeError(f"capturable Adam differs from the float-rate Adam: {out}")
+    return out
+
+
+def train_program_path(path: str, dev, cfg, batches, gen, save_dir: str) -> dict:
+    """The compiled training steps (``Trainer.step`` and ``Trainer.evaluate``
+    through ``make_train_step`` / ``make_eval_step``) at a preset's full
+    static plan on ``batches``, stage after stage from a seeded model, with
+    a twin model stepped eagerly (``train_step``) on the same batches and
+    draws; every count set to 0 just before each step and read just after.
+
+    Under deterministic algorithms a stage takes 4 steps: the first call
+    (eager warm-up, capture), a replay, a replay after ``set_epoch_lr``
+    moved the rate, and a replay with a NaN ground-truth pose (data-borne:
+    Ref's gradient is not finite and the step is skipped -- nothing moves
+    but the running statistics, ``grad_finite`` 0); each step bit-equal to
+    the twin's eager step (loss, stats, parameters, buffers, Adam's state),
+    each launching the ``STEP_LAUNCHES`` table; two eval calls bit-equal to
+    ``eval_step``; only the active stage moves.  Then in default mode a new
+    ``Trainer`` (new programs): from the state after the first call, a
+    replay and two eager steps of the twin: the replay's loss within 1e-5
+    (relative) of the eager one's and its parameters within 2 lr (the
+    backward's atomic sums may reorder between any two runs, and Adam moves
+    an element whose gradient lies at rounding of zero by up to ~lr either
+    way; the two eager steps' spread is printed beside); ms/step of program replays
+    and eager steps (host clock around a synchronized call,
+    ``PROGRAM_TIMED`` each on the same batches and draws), first-call ms,
+    capture s, device ms of a replay (CUDA events) and of its kernels, host
+    dispatches of one profiled step each, the profiled replay showing each
+    kernel's ``__global__`` names as its counters rose, peak memory of the
+    program's capture and of eager steps, and reserved memory once the
+    stage's programs are dropped.  At the end a replaced parameter makes
+    the next call raise."""
+    import copy
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train import trainer as tr
+    from buffer_tpu_torch.utils.logging import MetricLogger
+    preset = path.split()[0]
+    table = STEP_LAUNCHES[preset]
+    margin = 1.0 if preset == "KITTI" else 1.05
+    model = BufferModel(cfg, seed=0).to(dev)
+    twin = copy.deepcopy(model)
+    logger = MetricLogger(None, echo=False)
+    bad = type(batches[0])(batches[0].inputs,
+                           torch.full_like(batches[0].relt_pose, float("nan")))
+    lines = []
+
+    def check(what, got, want, st_got, st_want):
+        (loss, stats), (loss_e, stats_e) = got, want
+        diff = states_equal(st_got, st_want)
+        if (not tensors_equal(loss, loss_e) or stats.keys() != stats_e.keys()
+                or any(not tensors_equal(stats[k], stats_e[k]) for k in stats)
+                or diff):
+            raise RuntimeError(f"{path} {stage} {what}: program and eager "
+                               f"differ ({float(loss)} / {float(loss_e)}, "
+                               f"state {diff[:4]})")
+
+    for stage in STAGES:
+        twin.load_state_dict(model.state_dict())
+        interval = cfg.optim.scheduler_interval[stage]
+        start = {s: state_of(model, s) for s in STAGES}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer = tr.Trainer(cfg, model, stage, save_dir, logger=logger,
+                                 device=dev)
+            opt, lr_for_epoch = tr.make_optimizer(cfg, twin, stage)
+            twin.zero_grad(set_to_none=True)
+            plan = [(batches[0], 0), (batches[1 % len(batches)], 0),
+                    (batches[0], interval), (bad, interval)]
+            det_launches = []
+            for i, (batch, epoch) in enumerate(plan):
+                lr = trainer.set_epoch_lr(epoch)
+                tr.set_lr(opt, lr_for_epoch(epoch))
+                draws = make_train_draws(cfg, gen, dev)
+                held = step_state(model, trainer.optimizer)
+                got, _, rose = counted(lambda: trainer.step(batch, draws),
+                                       f"{path} {stage}", table[stage])
+                want, _, _ = counted(lambda: tr.train_step(
+                    twin, opt, stage, batch, draws, margin, dev),
+                    f"{path} {stage} eager", table[stage])
+                after = step_state(model, trainer.optimizer)
+                check(f"step {i}", got, want, after, step_state(twin, opt))
+                det_launches.append({k: v for k, v in rose.items() if v})
+                finite = float(got[1]["grad_finite"])
+                if i == 3 and stage == "Ref":
+                    moved = [k for k in states_equal(after, held)
+                             if "running" not in k and "num_batches" not in k]
+                    if finite != 0.0 or moved:
+                        raise RuntimeError(f"{path} Ref: the NaN-pose replay was "
+                                           f"not skipped ({finite}, {moved[:4]})")
+                elif i < 3 and finite != 1.0:
+                    raise RuntimeError(f"{path} {stage}: step {i} was skipped")
+            ev = make_train_draws(cfg, gen, dev)
+            for k in range(2):
+                got, _, _ = counted(lambda: trainer.eval_fn(batches[0], ev),
+                                    f"{path} {stage} eval", table[stage])
+                want = tr.eval_step(model, stage, batches[0], ev, margin, dev)
+                if not all(tensors_equal(a, b) for a, b in
+                           zip((got[0], *got[1].values()),
+                               (want[0], *want[1].values()))):
+                    raise RuntimeError(f"{path} {stage}: eval call {k} differs "
+                                       "from eval_step")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for s in STAGES:
+            now = state_of(model, s)
+            changed = [k for k, v in now.items() if not torch.equal(v, start[s][k])]
+            if s != stage and changed:
+                raise RuntimeError(f"{path} {stage}: frozen stage {s} changed")
+            if s == stage and not [k for k in changed if "running" not in k
+                                   and "num_batches" not in k]:
+                raise RuntimeError(f"{path} {stage}: no parameter moved")
+
+        # default algorithms: new programs, timing, dispatches, memory
+        twin.load_state_dict(model.state_dict())
+        trainer = tr.Trainer(cfg, model, stage, save_dir, logger=logger,
+                             device=dev)
+        opt, _ = tr.make_optimizer(cfg, twin, stage)
+        twin.zero_grad(set_to_none=True)
+        draws = [make_train_draws(cfg, gen, dev) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, first_ms, _ = counted(lambda: trainer.step(batches[0], draws[0]),
+                                 f"{path} {stage}", table[stage])
+        program_peak = torch.cuda.max_memory_allocated()
+        # a replay and two eager steps from one state: the backward's
+        # atomic sums may reorder between any two runs in default mode
+        start_sd = step_state(model, trainer.optimizer)
+        b1 = batches[1 % len(batches)]
+        got, _, _ = counted(lambda: trainer.step(b1, draws[1]),
+                            f"{path} {stage}", table[stage])
+        runs = []
+        for _ in range(2):
+            load_step_state(twin, opt, start_sd)
+            runs.append((tr.train_step(twin, opt, stage, b1, draws[1], margin,
+                                       dev)[0], step_state(twin, opt)))
+        rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        loss_rel, eager_loss_rel = rel(got[0], runs[0][0]), rel(runs[1][0], runs[0][0])
+        param_err, param_diffs = step_errors(step_state(model, trainer.optimizer),
+                                             runs[0][1], stage)
+        eager_err, eager_diffs = step_errors(runs[1][1], runs[0][1], stage)
+        lr = lr_for_epoch(0)
+        if loss_rel > 1e-5 or param_err > 2 * lr:
+            raise RuntimeError(f"{path} {stage}: default-mode replay {loss_rel} "
+                               f"/ {param_err} from the eager step")
+        (program,) = trainer.train_fn.programs.values()
+
+        def timed(call):
+            ms = []
+            for k in range(PROGRAM_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(batches[k % len(batches)], draws[k % 2])
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            return ms
+
+        prog_ms = timed(trainer.step)
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms = timed(lambda b, d: tr.train_step(twin, opt, stage, b, d,
+                                                    margin, dev))
+        eager_peak = torch.cuda.max_memory_allocated()
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start_ev.record()
+        trainer.step(batches[0], draws[0])
+        end_ev.record()
+        end_ev.synchronize()
+        replay_ms = start_ev.elapsed_time(end_ev)
+        before = cuda.launch_counts()
+        _, seen, n_kernels, dispatches, kernel_ms = profile_call(
+            lambda: trainer.step(batches[0], draws[0]))
+        rose = {k: v - before[k] for k, v in cuda.launch_counts().items()}
+        want_names = {}
+        for k, v in rose.items():
+            for name in GLOBALS[k]:
+                want_names[name] = want_names.get(name, 0) + v
+        if {n: c for n, c in seen.items() if c or n in want_names} != want_names:
+            raise RuntimeError(f"{path} {stage}: the profiled replay shows "
+                               f"{seen}, its counters rose {rose}")
+        *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
+            lambda: tr.train_step(twin, opt, stage, batches[0], draws[0],
+                                  margin, dev))
+        capture_s = program.capture_s
+        del program, trainer
+        torch.cuda.synchronize()
+        line = {"path": path, "stage": stage,
+                "bit_equal_steps_deterministic": len(plan),
+                "eval_calls_bit_equal": 2,
+                "launches_per_step": det_launches[-1],
+                "first_call_ms": first_ms, "capture_s": capture_s,
+                "ms_per_step": sum(prog_ms) / len(prog_ms), "step_ms": prog_ms,
+                "eager_ms_per_step": sum(eager_ms) / len(eager_ms),
+                "eager_step_ms": eager_ms,
+                "dispatches_per_step": dispatches,
+                "eager_dispatches_per_step": eager_dispatches,
+                "replay_device_ms": replay_ms, "replay_kernel_ms": kernel_ms,
+                "eager_kernel_ms": eager_kernel_ms,
+                "kernels_per_replay": n_kernels, "eager_kernels": eager_kernels,
+                "profiled_kernels": {n: c for n, c in seen.items() if c},
+                "default_mode": {"loss_rel_err": loss_rel,
+                                 "param_max_abs_err": param_err,
+                                 "params_differing": param_diffs,
+                                 "eager_vs_eager_loss_rel_err": eager_loss_rel,
+                                 "eager_vs_eager_param_max_abs_err": eager_err,
+                                 "eager_vs_eager_params_differing": eager_diffs,
+                                 "lr": lr},
+                "program_peak_mem_bytes": program_peak,
+                "eager_peak_mem_bytes": eager_peak,
+                "reserved_after_bytes": torch.cuda.memory_reserved()}
+        print(json.dumps(line))
+        lines.append(line)
+
+    # a replaced parameter makes the next call raise
+    trainer = tr.Trainer(cfg, model, "Inlier", save_dir, logger=logger,
+                         device=dev)
+    trainer.step(batches[0], make_train_draws(cfg, gen, dev))
+    p = next(iter(model.Inlier.parameters()))
+    owner, name = next((m, n) for m in model.Inlier.modules()
+                       for n, q in m.named_parameters(recurse=False) if q is p)
+    setattr(owner, name, torch.nn.Parameter(p.detach().clone()))
+    try:
+        trainer.step(batches[0], make_train_draws(cfg, gen, dev))
+    except RuntimeError as e:
+        if "captured" not in str(e):
+            raise
+    else:
+        raise RuntimeError(f"{path}: a replaced parameter did not raise")
+    return {"stages": lines}
 
 
 def write_redwood(path: str, pairs, mats, n_frag: int) -> None:
@@ -1585,7 +1919,7 @@ def dp_train_path(dev, cfg, model, batches, gen) -> dict:
     ranks = launch("buffer_tpu_torch.utils.dp_jobs:train_job",
                    {"cfg": cfg, "state": state, "stages": list(stages),
                     "batches": [cpu_batches] * DP_TRAIN_STEPS, "draws": draws,
-                    "device": str(dev), "deterministic": True}, 2,
+                    "device": str(dev), "deterministic": True, "eager": True}, 2,
                    backend="gloo", device=dev, timeout=DP_TIMEOUT,
                    threads=cpu_threads(dev))
     wall = time.time() - t0
@@ -1608,6 +1942,18 @@ def dp_train_path(dev, cfg, model, batches, gen) -> dict:
             for st in steps:
                 check_launches(f"dp train {stage}", st["launches"],
                                TRAIN_STEP[stage])
+                check_launches(f"dp train {stage} eager", st["eager"]["launches"],
+                               TRAIN_STEP[stage])
+                e = st["eager"]
+                if (not tensors_equal(st["loss"], e["loss"])
+                        or any(not tensors_equal(v, e["stats"][k])
+                               for k, v in st["stats"].items())
+                        or any(not tensors_equal(v, e["state"][k])
+                               for k, v in st["state"].items())
+                        or any(not tensors_equal(a[k], b[k]) for a, b in
+                               zip(st["adam"], e["adam"]) for k in a)):
+                    raise RuntimeError(f"dp train {stage} step {i}: the program "
+                                       "differs from the eager DP step")
                 if st["others_changed"] or float(st["stats"]["grad_finite"]) != 1.0:
                     raise RuntimeError(f"dp train {stage}: frozen stages "
                                        f"changed {st['others_changed'][:4]} or "
@@ -1630,6 +1976,18 @@ def dp_train_path(dev, cfg, model, batches, gen) -> dict:
         if not moved:
             raise RuntimeError(f"dp train {stage}: no parameter moved")
         ms = [[st["ms"] for st in r["stages"][stage]["steps"]] for r in ranks]
+        eager_ms = [[st["eager"]["ms"] for st in r["stages"][stage]["steps"]]
+                    for r in ranks]
+        replays = [m[1:] for m in ms]
+        program_line = {
+            "path": "dp train program", "stage": stage, "world": 2,
+            "backend": "gloo", "bit_equal_to_eager_steps": DP_TRAIN_STEPS,
+            "first_call_ms": [m[0] for m in ms],
+            "ms_per_step": sum(map(sum, replays)) / sum(map(len, replays)),
+            "eager_ms_per_step": sum(sum(m[1:]) for m in eager_ms)
+            / sum(len(m[1:]) for m in eager_ms),
+            "step_ms": ms, "eager_step_ms": eager_ms}
+        print(json.dumps(program_line))
         line = {"path": "dp train 3DMatch", "stage": stage, "world": 2,
                 "backend": "gloo", "step_ms": ms,
                 "ms_per_step": sum(m[-1] for m in ms) / len(ms),
@@ -1637,7 +1995,8 @@ def dp_train_path(dev, cfg, model, batches, gen) -> dict:
                                    for r in ranks],
                 "params_moved": len(moved), "one_process": errs,
                 "losses": [float(st["loss"]) for st in
-                           ranks[0]["stages"][stage]["steps"]]}
+                           ranks[0]["stages"][stage]["steps"]],
+                "program": program_line}
         print(json.dumps(line))
         lines.append(line)
     return {"stages": lines, "wall_s": wall}
@@ -1928,6 +2287,17 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     train_checks = [plain_train_check(st, tmodel, cfg, batches[0], tdraws, dev,
                                       save_dir) for st in ("Desc", "Ref")]
     lap("plain-path checks")
+
+    # ---- the compiled training steps, 3DMatch and KITTI ------------------
+    kbatches = [TrainBatch(inp, torch.as_tensor(T, device=dev))
+                for inp, T in zip(kpairs[:TRAIN_PAIRS], kposes_gt[:TRAIN_PAIRS])]
+    train_programs = [
+        train_program_path("3DMatch train program", dev, cfg, batches, tgen,
+                           save_dir),
+        train_program_path("KITTI train program", dev, kcfg, kbatches, tgen,
+                           save_dir)]
+    adam = adam_check(dev, cfg, tmodel)
+    lap("3DMatch train program and KITTI train program")
 
     # ---- the train entry over written trees, 3DMatch and KITTI ----------
     train_entry = train_entry_paths(dev, tgen)
@@ -2251,6 +2621,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "eval": evaluation,
             "train": train["stages"], "train_launches": train["launches"],
             "plain_train_checks": train_checks,
+            "train_programs": train_programs, "adam_check": adam,
             "ball_points_calls": [{"B": a[0].shape[0], "Q": a[0].shape[1],
                                    "N": a[1].shape[1], "k": a[5]}
                                   for a in ball_calls],

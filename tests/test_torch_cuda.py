@@ -718,3 +718,188 @@ def test_program_raises_on_swapped_parameters(card):
     conv.weight = torch.nn.Parameter(conv.weight.detach().clone())
     with pytest.raises(RuntimeError, match="captured"):
         fn(pair, draws)
+
+
+def _train_setup(card, n_pairs=2):
+    """The tiny plan, a seeded model on the card and ``n_pairs`` training
+    batches (the wavy surface shifted by 2 cm, its pose)."""
+    from buffer_tpu_torch.train.trainer import TrainBatch
+    cfg = tiny_cfg()
+    T = torch.eye(4, device=card)
+    T[:3, 3] = 0.02
+    batches = [TrainBatch(_tiny_pair(cfg, card, 900 - 100 * i, 0.6 - 0.05 * i), T)
+               for i in range(n_pairs)]
+    return cfg, BufferModel(cfg, seed=0).to(card), batches
+
+
+def _step_state(model, optimizer):
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"]):
+        sd.update({f"adam.{i}.{k}": v.clone()
+                   for k, v in optimizer.state[p].items()})
+    return sd
+
+
+def _same(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["Ref", "Desc", "Keypt", "Inlier"])
+def test_train_program_equals_eager_steps(card, stage, tmp_path):
+    """``Trainer.step`` (a CUDA graph after its first call) against
+    ``train_step`` on a twin model and Adam, under deterministic
+    algorithms, four steps: the first call, a replay, a replay after
+    ``set_epoch_lr`` moved the rate, a replay with a NaN pose: loss, stats,
+    every parameter and buffer and Adam's state bit for bit (NaN equal to
+    NaN) after each, and each replay launching what the eager step
+    launches."""
+    import copy
+    import os
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train import trainer as tr
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cuda.build_all()
+    cfg, model, batches = _train_setup(card)
+    twin = copy.deepcopy(model)
+    bad = tr.TrainBatch(batches[0].inputs, torch.full_like(batches[0].relt_pose,
+                                                           float("nan")))
+    gen = torch.Generator(card).manual_seed(0)
+    interval = cfg.optim.scheduler_interval[stage]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        trainer = tr.Trainer(cfg, model, stage, str(tmp_path), device=card)
+        opt, lr_for_epoch = tr.make_optimizer(cfg, twin, stage)
+        for i, (batch, epoch) in enumerate([(batches[0], 0), (batches[1], 0),
+                                            (batches[0], interval),
+                                            (bad, interval)]):
+            trainer.set_epoch_lr(epoch)
+            tr.set_lr(opt, lr_for_epoch(epoch))
+            draws = make_train_draws(cfg, gen, card)
+            cuda.reset_launches()
+            loss, stats = trainer.step(batch, draws)
+            rose = cuda.launch_counts()
+            cuda.reset_launches()
+            loss_e, stats_e = tr.train_step(twin, opt, stage, batch, draws,
+                                            trainer.det_margin, card)
+            assert cuda.launch_counts() == rose
+            _same(loss, loss_e)
+            assert stats.keys() == stats_e.keys()
+            for k in stats:
+                _same(stats[k], stats_e[k])
+            a, b = _step_state(model, trainer.optimizer), _step_state(twin, opt)
+            for k in a:
+                _same(a[k], b[k])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(trainer.train_fn.programs) == 1
+
+
+@pytest.mark.cuda
+def test_train_program_skips_a_data_borne_nan(card, tmp_path):
+    """A replay of the Ref step with a NaN ground-truth pose (its gradient
+    not finite): ``grad_finite`` 0, the parameters and Adam's state as
+    before the step, the running statistics moved."""
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train import trainer as tr
+    cuda.build_all()
+    cfg, model, batches = _train_setup(card, 1)
+    trainer = tr.Trainer(cfg, model, "Ref", str(tmp_path), device=card)
+    gen = torch.Generator(card).manual_seed(1)
+    for _ in range(2):
+        trainer.step(batches[0], make_train_draws(cfg, gen, card))
+    before = _step_state(model, trainer.optimizer)
+    bad = tr.TrainBatch(batches[0].inputs, torch.full_like(batches[0].relt_pose,
+                                                           float("nan")))
+    _, stats = trainer.step(bad, make_train_draws(cfg, gen, card))
+    after = _step_state(model, trainer.optimizer)
+    assert float(stats["grad_finite"]) == 0.0
+    moved = [k for k in after if not torch.equal(after[k], before[k])]
+    assert moved and all("running" in k or "num_batches" in k for k in moved)
+
+
+@pytest.mark.cuda
+def test_eval_program_equals_eval_step(card, tmp_path):
+    """``Trainer.evaluate``'s compiled step: the first call and a replay
+    equal ``eval_step`` bit for bit for every stage, and move nothing."""
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train import trainer as tr
+    cuda.build_all()
+    cfg, model, batches = _train_setup(card, 1)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    draws = make_train_draws(cfg, torch.Generator(card).manual_seed(2), card)
+    for stage in ("Ref", "Desc", "Keypt", "Inlier"):
+        fn = tr.make_eval_step(model, stage, 1.05)
+        want = tr.eval_step(model, stage, batches[0], draws, 1.05, card)
+        for _ in range(2):
+            loss, stats = fn(batches[0], draws)
+            _same(loss, want[0])
+            for k in want[1]:
+                _same(stats[k], want[1][k])
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.cuda
+def test_train_program_raises_on_a_replaced_parameter(card, tmp_path):
+    """A parameter replaced after capture makes the next call raise (no
+    silent stale graph); weights loaded in place replay."""
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train import trainer as tr
+    cuda.build_all()
+    cfg, model, batches = _train_setup(card, 1)
+    trainer = tr.Trainer(cfg, model, "Desc", str(tmp_path), device=card)
+    gen = torch.Generator(card).manual_seed(3)
+    trainer.step(batches[0], make_train_draws(cfg, gen, card))
+    model.load_state_dict(BufferModel(cfg, seed=5).state_dict())
+    trainer.step(batches[0], make_train_draws(cfg, gen, card))
+    conv = model.Desc.pnt_layer[0]
+    conv.weight = torch.nn.Parameter(conv.weight.detach().clone())
+    with pytest.raises(RuntimeError, match="captured"):
+        trainer.step(batches[0], make_train_draws(cfg, gen, card))
+
+
+@pytest.mark.cuda
+def test_dp_train_program_world_2_equals_eager_dp_step(card):
+    """The DP program (two CUDA graphs around the eager all-reduce) at
+    world 2 on the card over gloo, tiny banded plan, Ref then Desc, three
+    steps each under deterministic algorithms: every step bit-equal on
+    every rank to the eager DP step from the same state (loss, stats, the
+    stage's state, Adam's state), and the ranks equal."""
+    import os
+    from buffer_tpu_torch.pipeline.train_forward import make_train_draws
+    from buffer_tpu_torch.train.trainer import TrainBatch
+    from buffer_tpu_torch.utils.dist import launch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    c = tiny_cfg()
+    cfg = c.replace(static=dataclasses.replace(
+        c.static, points_l0=4096, points_l1=2048, points_l2=512,
+        raw_points=4096, knn_band=512))
+    T = torch.eye(4)
+    T[:3, 3] = 0.02
+    batches = [TrainBatch(_cpu(_tiny_pair(cfg, card, 4000, 1.0 + 0.1 * i)), T)
+               for i in range(2)]
+    gen = torch.Generator(card).manual_seed(3)
+    stages = ["Ref", "Desc"]
+    draws = {s: [[_cpu(make_train_draws(cfg, gen, card)) for _ in batches]
+                 for _ in range(3)] for s in stages}
+    out = launch("buffer_tpu_torch.utils.dp_jobs:train_job",
+                 {"cfg": cfg, "state": BufferModel(cfg, seed=1).state_dict(),
+                  "stages": stages, "batches": [batches] * 3, "draws": draws,
+                  "device": None, "deterministic": True, "eager": True},
+                 2, backend="gloo", timeout=300)
+    for stage in stages:
+        for o in out:
+            for st in o["stages"][stage]["steps"]:
+                e = st["eager"]
+                _same(st["loss"], e["loss"])
+                for k, v in st["stats"].items():
+                    _same(v, e["stats"][k])
+                for k, v in st["state"].items():
+                    _same(v, e["state"][k])
+                for a, b in zip(st["adam"], e["adam"]):
+                    for k in a:
+                        _same(a[k], b[k])
+        last = [o["stages"][stage]["steps"][-1]["state"] for o in out]
+        for k, v in last[0].items():
+            _same(v, last[1][k])
