@@ -31,10 +31,13 @@ class CostVolume(nn.Module):
         self.azi_n = azi_n
         self.conv = CostNet(azi_n)
 
+    def cost(self, des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
+        """The volume CostNet reads: [M, C, shift, ele, azi]."""
+        rolls = _azimuth_rolls(des1, self.azi_n)
+        return (rolls - des2[:, None]).permute(0, 4, 1, 2, 3)
+
     def forward(self, des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
         """des1, des2 [M, ele_band, azi, C] (the reduced elevation band)."""
-        rolls = _azimuth_rolls(des1, self.azi_n)
-        cost = (rolls - des2[:, None]).permute(0, 4, 1, 2, 3)  # [M, C, s, e, a]
-        prob = torch.softmax(self.conv(cost), dim=-1)
+        prob = torch.softmax(self.conv(self.cost(des1, des2)), dim=-1)
         bins = torch.arange(self.azi_n, dtype=prob.dtype, device=prob.device)
         return torch.sum(prob * bins, dim=-1)

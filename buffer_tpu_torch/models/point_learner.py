@@ -131,7 +131,7 @@ class _Decoder(nn.Module):
             nn.Identity(), VNBlock(fd * 6, fd * 2),
             nn.Identity(), VNBlock(fd * 3, fd)])
 
-    def _decode(self, bottle, skips, pyr: Pyramid):
+    def decode(self, bottle, skips, pyr: Pyramid):
         x = nearest_upsample(bottle, pyr.upsamples[1], pyr.upsample_valid[1])
         x = self.decoder_blocks[1](torch.cat([x, skips[1]], dim=-2), pyr.masks[1])
         x = nearest_upsample(x, pyr.upsamples[0], pyr.upsample_valid[0])
@@ -157,19 +157,34 @@ class EFCNN(_Decoder):
                                        VNLinearLeakyReLU(fd // 2, 1)])
         self.inv_layer = InvariantHead(fd, "sigmoid")
 
+    # (query level, support level) of each encoder block: a block on one
+    # level reads its neighbour table, a strided one the pool table into
+    # the finer level
+    LEVELS = ((0, 0), (1, 0), (1, 1), (2, 1), (2, 2))
+
+    def encode(self, i: int, x, pyr: Pyramid):
+        """Encoder block ``i`` on ``x`` (block 0: the input normals as
+        [B, N0, 1, 3])."""
+        q, s = self.LEVELS[i]
+        if q == s:
+            idx, valid = pyr.neighbors[s], pyr.neighbor_valid[s]
+        else:
+            idx, valid = pyr.pools[s], pyr.pool_valid[s]
+        return self.encoder_blocks[i](x, pyr.points[q], pyr.masks[q],
+                                      pyr.points[s], idx, valid)
+
+    def heads(self, x, mask):
+        """The axis head and the invariant eps head on the decoded
+        level-0 features: (axis [B, N0, 3], eps [B, N0, 1])."""
+        h = self.fc_layer[1](self.fc_layer[0](x, mask), mask)
+        return h[..., 0, :], self.inv_layer(x, mask)
+
     def forward(self, pyr: Pyramid):
-        pts, msk = pyr.points, pyr.masks
-        nb, nv = pyr.neighbors, pyr.neighbor_valid
-        enc = self.encoder_blocks
-        x0 = enc[0](pyr.features[..., None, :], pts[0], msk[0], pts[0], nb[0], nv[0])
-        x1 = enc[1](x0, pts[1], msk[1], pts[0], pyr.pools[0], pyr.pool_valid[0])
-        x1 = enc[2](x1, pts[1], msk[1], pts[1], nb[1], nv[1])
-        x2 = enc[3](x1, pts[2], msk[2], pts[1], pyr.pools[1], pyr.pool_valid[1])
-        x2 = enc[4](x2, pts[2], msk[2], pts[2], nb[2], nv[2])
-        x = self._decode(x2, (x0, x1), pyr)
-        h = self.fc_layer[1](self.fc_layer[0](x, msk[0]), msk[0])
-        eps = self.inv_layer(x, msk[0])
-        return h[..., 0, :], eps, {"bottle": x2, "skips": (x0, x1)}
+        x0 = self.encode(0, pyr.features[..., None, :], pyr)
+        x1 = self.encode(2, self.encode(1, x0, pyr), pyr)
+        x2 = self.encode(4, self.encode(3, x1, pyr), pyr)
+        axis, eps = self.heads(self.decode(x2, (x0, x1), pyr), pyr.masks[0])
+        return axis, eps, {"bottle": x2, "skips": (x0, x1)}
 
 
 class DetNet(_Decoder):
@@ -183,5 +198,5 @@ class DetNet(_Decoder):
         self.invar_layer = InvariantHead(fd, "softplus")
 
     def forward(self, pyr: Pyramid, branch):
-        x = self._decode(branch["bottle"], branch["skips"], pyr)
+        x = self.decode(branch["bottle"], branch["skips"], pyr)
         return self.invar_layer(x, pyr.masks[0])

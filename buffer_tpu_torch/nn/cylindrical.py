@@ -22,6 +22,17 @@ def pad_cyl_2d(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([z, x, z], dim=-2)
 
 
+def conv_layers(ops) -> tuple:
+    """``ops`` grouped by convolution: each group a convolution and the
+    operators up to the next one (its batch norm and ReLU)."""
+    groups = []
+    for op in ops:
+        if isinstance(op, (nn.Conv2d, nn.Conv3d)):
+            groups.append([])
+        groups[-1].append(op)
+    return tuple(tuple(g) for g in groups)
+
+
 class CylindricalNet(nn.Module):
     """``Cylindrical_Net(inchan=16, dim=32)`` (models/patchnet.py:69-85):
     [B, 16, rad, ele, azi] -> [B, 32, ele, azi]."""
@@ -35,9 +46,12 @@ class CylindricalNet(nn.Module):
             cur = d
         ops += [nn.Conv2d(32, 32, 3)]
         self.ops = nn.ModuleList(ops)
+        self.layers = conv_layers(self.ops)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for op in self.ops:
+    def layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Convolution ``i`` (with its cylindrical padding) and the batch
+        norm and ReLU after it."""
+        for op in self.layers[i]:
             if isinstance(op, nn.Conv3d):
                 x = op(pad_cyl_2d(x, 3))
             elif isinstance(op, nn.Conv2d):
@@ -46,6 +60,11 @@ class CylindricalNet(nn.Module):
                 x = op(pad_cyl_2d(x, 3))
             else:
                 x = op(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.layers)):
+            x = self.layer(i, x)
         return x
 
 
@@ -65,9 +84,16 @@ class CostNet(nn.Module):
                     nn.ReLU()]
         ops += [nn.Conv3d(32, out_dim, (2, 1, 2))]
         self.ops = nn.ModuleList(ops)
+        self.layers = conv_layers(self.ops)
         self.out_dim = out_dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for op in self.ops:
+    def layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Convolution ``i`` and the batch norm and ReLU after it."""
+        for op in self.layers[i]:
             x = op(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.layers)):
+            x = self.layer(i, x)
         return x.reshape(x.shape[0], self.out_dim)

@@ -224,6 +224,51 @@ class Front(NamedTuple):
     kpt_valid: torch.Tensor     # [2, K]
 
 
+def reference_axes(model: BufferModel, pyr, sds: torch.Tensor):
+    """EFCNN on the pyramid: (axes oriented toward the origin-facing
+    hemisphere, eps, the branch DetNet reads)."""
+    axis, eps, branch = model.Ref(pyr)
+    return orient_axes(axis, sds), eps, branch
+
+
+def detect_keypoints(cfg: Config, sds: torch.Tensor, sds_mask: torch.Tensor,
+                     score: torch.Tensor, axis: torch.Tensor):
+    """The detector threshold and FPS keypoints (models/BUFFER.py:255-271):
+    (kidx, kvalid, keypoints [2, K, 3], their axes [2, K, 3])."""
+    eligible = sds_mask & (score > cfg.point.keypts_th)
+    kidx, kvalid = farthest_point_sample_batched(sds, eligible,
+                                                 cfg.point.num_keypts)
+    gather = lambda a: torch.gather(a, 1, kidx.long()[..., None].expand(-1, -1, 3))
+    return kidx, kvalid, gather(sds), gather(axis)
+
+
+def match_keypoints(kpts, kvalid, s_des, t_des, t_R):
+    """Mutual matching (models/BUFFER.py:283-289): (the matches, each source
+    keypoint's target index as int64, the target keypoints and frames in
+    source order, the mutual count)."""
+    m = matching.mutual_matching(s_des, t_des, kvalid[0], kvalid[1])
+    tgt = m.tgt_idx.long()
+    return m, tgt, kpts[1][tgt], t_R[tgt], torch.sum(m.mutual)
+
+
+def cost_volume(model: BufferModel, s_equi, t_equi, tgt):
+    """The SO(2) azimuth of every match from the cost volume on the reduced
+    elevation band, at the full keypoint count whatever the mutual count."""
+    band = slice(1, model.cfg.patch.ele_n - 1)
+    return model.Inlier(s_equi[:, band], t_equi[:, band][tgt])
+
+
+def vote(cfg: Config, ss_kpts, tt_kpts, ss_R, tt_R, ind, mutual):
+    """Per-match hypotheses and voting (models/BUFFER.py:294-311): (R_h,
+    t_h, the winning hypothesis, its inliers)."""
+    R_h, t_h = matching.pose_hypotheses(ss_kpts, tt_kpts, ss_R, tt_R, ind,
+                                        cfg.patch.azi_n)
+    best, vote_inliers = matching.vote_hypotheses(
+        ss_kpts, tt_kpts, R_h, t_h, mutual, cfg.patch.azi_n,
+        cfg.match.inlier_th)
+    return R_h, t_h, best, vote_inliers
+
+
 def pair_front(model: BufferModel, inputs: PairInputs, draws: Draws,
                mark=lambda: None):
     """The pair up to the RANSAC budget: the pyramid, Ref/Keypt, FPS,
@@ -232,23 +277,19 @@ def pair_front(model: BufferModel, inputs: PairInputs, draws: Draws,
     host and builds no tensor from host data, so that it can be captured
     as a CUDA graph."""
     cfg = model.cfg
-    K = cfg.point.num_keypts
 
     # 1+2. input normals + conv pyramid, EFCNN axes, DetNet saliency
     levels = (None if inputs.lvl1 is None else
               (inputs.lvl1, inputs.lvl1_mask, inputs.lvl2, inputs.lvl2_mask))
     pyr = build_pyramid_and_normals(cfg, inputs.sds, inputs.sds_mask, levels)
     mark()
-    axis, eps, branch = model.Ref(pyr)
-    axis = orient_axes(axis, inputs.sds)
+    axis, eps, branch = reference_axes(model, pyr, inputs.sds)
     score = model.Keypt(pyr, branch)[..., 0]
     mark()
 
-    # 3. detector threshold + FPS keypoints (models/BUFFER.py:255-271)
-    eligible = inputs.sds_mask & (score > cfg.point.keypts_th)
-    kidx, kvalid = farthest_point_sample_batched(inputs.sds, eligible, K)
-    gather = lambda a: torch.gather(a, 1, kidx.long()[..., None].expand(-1, -1, 3))
-    kpts, kaxes = gather(inputs.sds), gather(axis)
+    # 3. detector threshold + FPS keypoints
+    kidx, kvalid, kpts, kaxes = detect_keypoints(cfg, inputs.sds,
+                                                 inputs.sds_mask, score, axis)
     mark()
 
     # 4. descriptors of both clouds
@@ -256,25 +297,15 @@ def pair_front(model: BufferModel, inputs: PairInputs, draws: Draws,
         model, cfg, draws, inputs.raw, inputs.raw_mask, kpts, kaxes)
     mark()
 
-    # 5. mutual matching (models/BUFFER.py:283-289)
-    m = matching.mutual_matching(s_des, t_des, kvalid[0], kvalid[1])
-    tgt = m.tgt_idx.long()
-    ss_kpts, tt_kpts = kpts[0], kpts[1][tgt]
-    ss_R, tt_R = s_R, t_R[tgt]
+    # 5.-7. mutual matching, the cost volume, hypotheses and voting
+    m, tgt, tt_kpts, tt_R, num_mutual = match_keypoints(kpts, kvalid, s_des,
+                                                        t_des, t_R)
+    ind = cost_volume(model, s_equi, t_equi, tgt)
+    R_h, t_h, best, vote_inliers = vote(cfg, kpts[0], tt_kpts, s_R, tt_R, ind,
+                                        m.mutual)
 
-    # 6. SO(2) azimuth from the cost volume on the reduced elevation band
-    band = slice(1, cfg.patch.ele_n - 1)
-    ind = model.Inlier(s_equi[:, band], t_equi[:, band][tgt])
-
-    # 7. per-match hypotheses + voting (models/BUFFER.py:294-311)
-    R_h, t_h = matching.pose_hypotheses(ss_kpts, tt_kpts, ss_R, tt_R, ind,
-                                        cfg.patch.azi_n)
-    best, vote_inliers = matching.vote_hypotheses(
-        ss_kpts, tt_kpts, R_h, t_h, m.mutual, cfg.patch.azi_n,
-        cfg.match.inlier_th)
-
-    front = Front(ss_kpts=ss_kpts, tt_kpts=tt_kpts, mutual=m.mutual,
-                  vote_inliers=vote_inliers, num_mutual=torch.sum(m.mutual),
+    front = Front(ss_kpts=kpts[0], tt_kpts=tt_kpts, mutual=m.mutual,
+                  vote_inliers=vote_inliers, num_mutual=num_mutual,
                   kpts=kpts, kpt_valid=kvalid)
     return front, {
         "pyramid": pyr, "axis": axis, "eps": eps, "score": score,
@@ -303,18 +334,29 @@ def tail_budget(cfg: Config, draws: Draws, boost: bool):
     return draws.ransac_gumbel, cfg.static.refine_iters
 
 
+def tail_ransac(cfg: Config, front: Front, gumbel: torch.Tensor):
+    """RANSAC on the winner's inliers: (pose [4, 4], inlier mask [K])."""
+    return ransac.ransac_pose(gumbel, front.ss_kpts, front.tt_kpts,
+                              front.vote_inliers, cfg.match.dist_th,
+                              cfg.match.similar_th)
+
+
+def tail_refine(cfg: Config, front: Front, pose: torch.Tensor, iters: int):
+    """With ``test.pose_refine``, ``iters`` IRLS rounds over the mutual
+    matches from ``pose``; otherwise ``pose``."""
+    if not cfg.test.pose_refine:
+        return pose
+    th = 1.2 if cfg.data.dataset == "KITTI" else 0.10
+    return refine.post_refinement(pose, front.ss_kpts, front.tt_kpts,
+                                  front.mutual, th, iters=iters)
+
+
 def pair_tail(cfg: Config, front: Front, gumbel: torch.Tensor, iters: int):
     """RANSAC on the winner's inliers, then (with ``test.pose_refine``)
     ``iters`` IRLS rounds.  Returns (pose [4, 4], number of RANSAC inliers
     []).  Capture-safe like :func:`pair_front`."""
-    pose, ransac_inl = ransac.ransac_pose(
-        gumbel, front.ss_kpts, front.tt_kpts, front.vote_inliers,
-        cfg.match.dist_th, cfg.match.similar_th)
-    if cfg.test.pose_refine:
-        th = 1.2 if cfg.data.dataset == "KITTI" else 0.10
-        pose = refine.post_refinement(pose, front.ss_kpts, front.tt_kpts,
-                                      front.mutual, th, iters=iters)
-    return pose, torch.sum(ransac_inl)
+    pose, ransac_inl = tail_ransac(cfg, front, gumbel)
+    return tail_refine(cfg, front, pose, iters), torch.sum(ransac_inl)
 
 
 def _signature(inputs: PairInputs, draws: Draws) -> tuple:

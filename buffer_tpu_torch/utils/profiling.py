@@ -30,17 +30,171 @@ operators; the trace goes to ``DIR/profile_train_<stage>.json.gz``.  With
 is its first call and capture; the steps are graph replays), so that the
 replay's host and device time read side by side with the eager step's;
 its trace goes to ``DIR/profile_train_<stage>_program.json.gz``.
+
+The helpers of the measurement entry points (``scripts/profile_*.py``,
+``scripts/capture_*trace.py``), counterparts of
+``buffer_tpu/utils/profiling.py`` and of the JAX scripts' on-device scan
+timing: :func:`trace`, :func:`annotate`, :class:`StepTimer`,
+:func:`graph_time` and :func:`replay_time`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gzip
 import json
+import math
 import os
 import shutil
+import subprocess
 import time
+from typing import Iterator, Optional
+
+# torch.profiler keeps only the device records that it dates inside its
+# capture window: on the card the first kernels of a call launched as the
+# window opened went missing now and then (up to ~15 ms of them), so the
+# profiled work starts, and the window closes, this long after the card
+# is idle
+SETTLE_S = 0.25
+
+
+def settle() -> None:
+    """Waits for the card to finish, then :data:`SETTLE_S` seconds."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    time.sleep(SETTLE_S)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[Optional[str]]:
+    """A ``torch.profiler`` trace of the block's CPU activity and, where a
+    card is present, its CUDA activity, written into ``log_dir`` as a
+    gzipped Chrome trace ``<ns>.trace.json.gz``; yields that path.  Nothing
+    (and None) when ``log_dir`` is None."""
+    if log_dir is None:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{time.time_ns()}.trace.json")
+    with profile(activities=activities) as prof:
+        settle()
+        yield path + ".gz"
+        settle()
+    save_trace(prof, path)
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named span: a ``torch.profiler`` record function and, where a card
+    is present, an NVTX range."""
+    import torch
+    nvtx = torch.cuda.is_available()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
+
+
+class StepTimer:
+    """Host-clock step timer that synchronizes the card (where one is
+    present) before and after each measure, so that a step's time includes
+    its device work; keeps every time and their median (seconds)."""
+
+    def __init__(self):
+        self.times = []
+
+    @contextlib.contextmanager
+    def measure(self):
+        import torch
+        sync = (torch.cuda.synchronize if torch.cuda.is_available()
+                else lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        self.times.append(time.perf_counter() - t0)
+
+    @property
+    def median(self) -> float:
+        s = sorted(self.times)
+        return s[len(s) // 2] if s else float("nan")
+
+
+def replay_time(call, n_lo: int = 2, n_hi: int = 12, reps: int = 3) -> float:
+    """Device milliseconds of one ``call()`` by differencing: ``n_lo``, then
+    ``n_hi`` calls back to back between two CUDA events, ``reps`` times
+    each; (min at n_hi - min at n_lo) / (n_hi - n_lo).  The fixed costs of
+    a run (the first launch's latency, the events) cancel."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("replay_time: no CUDA device")
+
+    def best(n: int) -> float:
+        ms = math.inf
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                call()
+            end.record()
+            end.synchronize()
+            ms = min(ms, start.elapsed_time(end))
+        return ms
+
+    torch.cuda.synchronize()
+    lo = best(n_lo)
+    return (best(n_hi) - lo) / (n_hi - n_lo)
+
+
+def graph_time(body, n_lo: int = 2, n_hi: int = 12, reps: int = 3) -> float:
+    """Device milliseconds of ``body`` (a closure over fixed input tensors
+    that returns tensors), the counterpart of the JAX scripts' scan
+    differencing: ``body`` runs once eagerly on a side stream (first-use
+    allocations and caches), is captured once as a CUDA graph, and the
+    graph's replays are timed by :func:`replay_time`.  Each replay adds the
+    launches of the kernels it holds to their counters.  Raises without a
+    card."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_time: no CUDA device")
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline.registration import capture_graph
+    stream = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        body()
+    stream.wait_stream(side)
+    graph, out, launches = capture_graph(body, torch.cuda.graph_pool_handle())
+
+    def replay():
+        graph.replay()
+        cuda.add_launches(launches)
+
+    ms = replay_time(replay, n_lo, n_hi, reps)
+    del out
+    return ms
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 class StageMarks:
@@ -119,9 +273,10 @@ def profile_train(args, cfg, model, inputs, T, dev) -> int:
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle()
         for _ in range(n):
             step()
-        torch.cuda.synchronize()
+        settle()
     kernels = kernel_events(prof)
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
     os.makedirs(args.out, exist_ok=True)
@@ -194,11 +349,13 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle()
         t0 = time.perf_counter()
         for _ in range(args.pairs):
             register_pair(model, inputs, draws, device=dev, timer=StageMarks())
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        settle()
     kernels = kernel_events(prof)
     busy = stage_device_ms(kernels, StageTimer.STAGES, args.pairs)
     kernels = [e for e in kernels if StageMarks.MARKER not in e.name]

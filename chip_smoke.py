@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives twenty paths, each with every kernel launch counter set to 0
+2. Drives twenty-one paths, each with every kernel launch counter set to 0
    just before it and read just after (in each rank's own process for the
    data-parallel ones); every kernel of a path must have run on every pair
    (or step) of it, as often as the path's table says:
@@ -39,6 +39,17 @@
      (``low_match_th`` above any count), the base tail, ``fused_desc =
      False`` and device levels, each replay bit-equal to its eager pair;
      weights loaded in place replay, a replaced parameter raises;
+   * "profiles": the measurement entry points through their ``main(argv)``
+     at full width (``profiles_path``): ``scripts.profile_stages`` on
+     3DMatch and KITTI (each stage's rows, chained, bit-equal to
+     ``register_pair``'s intermediates and pose for both budgets, their one
+     pass launching the path's table, each row's ms by a CUDA graph's
+     differenced replays beside the program's replay), ``profile_micro``
+     on 3DMatch (the per-layer rows bit-equal to ``model.Ref``,
+     ``model.Keypt``, ``describe_both`` and both networks), ``profile_train``
+     on the four stages with the TF32 precision check, ``capture_trace``
+     then ``analyze_trace``, whose depth-1 ms an iteration must lie within
+     5% of a profiled replay's kernel ms; every row finite and above 0;
    * "3DMatch train": stage-sequential training at the same full width
      (``pos_num = 512`` positive pairs a step, 512-point patches, 420 SPT
      anchors, ``voxel_sample = 10``) on the main path's first 2 pairs with
@@ -1661,17 +1672,20 @@ def results_equal(got, want) -> bool:
 
 
 def profile_call(fn):
-    """One call of ``fn`` under ``torch.profiler``: (its output, kernel
-    count by __global__ name of GLOBALS, all kernels launched, host
-    dispatches, the kernels' device ms)."""
+    """One call of ``fn`` under ``torch.profiler``, started and ended
+    ``utils.profiling.settle`` after the card is idle (the profiler drops
+    records it dates outside its window): (its output, kernel count by
+    __global__ name of GLOBALS, all kernels launched, host dispatches, the
+    kernels' device ms)."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from buffer_tpu_torch.utils.profiling import kernel_events
+    from buffer_tpu_torch.utils.profiling import kernel_events, settle
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle()
         out = fn()
-        torch.cuda.synchronize()
+        settle()
     kernels = kernel_events(prof)
     names = sorted({n for ns in GLOBALS.values() for n in ns})
     seen = {n: sum(1 for e in kernels if re.search(rf"\b{n}\b", e.name))
@@ -1758,7 +1772,8 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
             want[name] = want.get(name, 0) + v
     if ({n: c for n, c in seen.items() if c or n in want} != want
             or not results_equal(res, eager[0])):
-        raise RuntimeError(f"{path}: the profiled replay shows {seen}, its "
+        raise RuntimeError(f"{path}: the profiled replay shows {seen} "
+                           f"({n_kernels} kernels, {kernel_ms} ms), its "
                            f"counters rose {rose}")
     *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
         lambda: registration.register_pair(model, pairs[0], draws[0],
@@ -1841,6 +1856,102 @@ def program_variants(dev, cfg, pairs, draws, smodel, sampled_eager) -> dict:
     if not results_equal(fn(pairs[0], draws[0]), want):
         raise RuntimeError("program: the restored parameter does not replay")
     print(json.dumps({"program_variants": out}))
+    return out
+
+
+def script_line(main, argv) -> dict:
+    """An entry point's ``main(argv)`` with its standard output kept: a
+    return other than 0 raises; returns its last line as JSON."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(list(argv))
+    finally:
+        lines = buf.getvalue().strip().splitlines()
+    if rc != 0:
+        raise RuntimeError(f"{main.__module__} {argv}: returned {rc}")
+    return json.loads(lines[-1])
+
+
+def rows_ok(what: str, rows) -> None:
+    """Every row's ms finite and above 0."""
+    bad = [r for r in rows if not (math.isfinite(r["ms"]) and r["ms"] > 0)]
+    if bad:
+        raise RuntimeError(f"{what}: rows not finite and above 0: {bad}")
+
+
+def profiles_path(dev, model, pair, draws) -> dict:
+    """The measurement entry points at full width: ``profile_stages`` on
+    3DMatch and KITTI (the script holds its chained rows bit-equal to
+    ``register_pair`` for both budgets and raises otherwise; here their one
+    pass launches the path's table), ``profile_micro`` on 3DMatch (chained
+    rows bit-equal to the modules they split), ``profile_train`` on every
+    stage with the precision check, ``capture_trace`` and
+    ``analyze_trace``: the trace's depth-1 ms an iteration within 5% of a
+    profiled replay's kernel ms of the same program on the main path's
+    first pair (``model``, ``pair``, ``draws``: the scripts' own pair and
+    draws).  Every row finite and above 0."""
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
+    from buffer_tpu_torch.scripts import (analyze_trace, capture_trace,
+                                          profile_micro, profile_stages,
+                                          profile_train)
+    out = {}
+    for config in ("3DMatch", "KITTI"):
+        line = script_line(profile_stages.main, ["--config", config])
+        if line["chain_bit_equal"] is not True:
+            raise RuntimeError(f"profile_stages {config}: rows not bit-equal")
+        check_launches(f"{config} stage rows", line["launches_a_pass"],
+                       PER_PAIR[config])
+        rows_ok(f"profile_stages {config}", line["rows"]
+                + [{"name": "kabsch_quat", "ms": line["kabsch_ms"]},
+                   {"name": "replay", "ms": line["replay_device_ms"]}])
+        print(json.dumps({"profile_stages": config, "rows": {
+            r["name"]: r["ms"] for r in line["rows"]}, "sum_ms": line["sum_ms"],
+            "replay_device_ms": line["replay_device_ms"],
+            "tail_taken": line["tail_taken"], "kabsch_ms": line["kabsch_ms"],
+            "kabsch_calls": line["kabsch_calls"]}), flush=True)
+        out[f"stages {config}"] = line
+    micro = script_line(profile_micro.main, ["--config", "3DMatch"])
+    if micro["chain_bit_equal"] is not True:
+        raise RuntimeError("profile_micro: rows not bit-equal")
+    rows_ok("profile_micro", micro["rows"])
+    print(json.dumps({"profile_micro": {r["name"]: r["ms"] for r in micro["rows"]},
+                      "cylindrical_ms": micro["cylindrical_ms"],
+                      "cost_volume_ms": micro["cost_volume_ms"]}), flush=True)
+    out["micro 3DMatch"] = micro
+    train = script_line(profile_train.main, ["--stages", ",".join(STAGES),
+                                             "--precision-check"])
+    rows_ok("profile_train", [{"name": s["stage"], "ms": s["replay_ms"]}
+                              for s in train["stages"]])
+    if not all(math.isfinite(p["grad_rel_l2"]) for p in train["precision"]):
+        raise RuntimeError(f"profile_train: precision {train['precision']}")
+    print(json.dumps({"profile_train": {s["stage"]: s["replay_ms"]
+                                        for s in train["stages"]},
+                      "grad_rel_l2_tf32": {p["stage"]: p["grad_rel_l2"]
+                                           for p in train["precision"]}}),
+          flush=True)
+    out["train 3DMatch"] = train
+    trace_dir = str(cuda.BUILD_DIR / "torchtrace_smoke")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cap = script_line(capture_trace.main, ["--out", trace_dir, "--iters", "4"])
+    ana = script_line(analyze_trace.main, [cap["trace"], "--iters", "4"])
+    fn = registration.make_register_fn(model, device=dev)
+    for _ in range(2):
+        fn(pair, draws)
+    *_, kernel_ms = profile_call(lambda: fn(pair, draws))
+    ratio = ana["ms_per_iter"] / kernel_ms
+    if not (kernel_ms > 0 and abs(ratio - 1) <= 0.05):
+        raise RuntimeError(f"analyze_trace: {ana['ms_per_iter']} ms an "
+                           f"iteration against a replay's {kernel_ms} kernel ms")
+    print(json.dumps({"analyze_trace": {
+        "depth1_ms_per_iter": ana["ms_per_iter"], "events": ana["events"],
+        "replay_kernel_ms": kernel_ms, "ratio": ratio,
+        "top": [(r["name"][:60], r["ms_per_iter"], r["count_per_iter"])
+                for r in ana["rows"][:12]]}}), flush=True)
+    out["trace 3DMatch"] = {"capture": cap, "analysis": ana,
+                            "replay_kernel_ms": kernel_ms, "ratio": ratio}
     return out
 
 
@@ -2233,6 +2344,10 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
                                 sampled_results[0])
     lap("3DMatch program and KITTI program")
 
+    # ---- the measurement entry points: profiles and traces --------------
+    profiles = profiles_path(dev, model, pairs[0], draws[0])
+    lap("profiles")
+
     # ---- the first pair of each preset with every call recorded ---------
     res_k, inter_k, calls = recorded_run(model, dev, pairs[0], draws[0])
     kres_k, kinter_k, kcalls = recorded_run(kmodel, dev, kpairs[0], kdraws[0])
@@ -2616,6 +2731,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
             "programs": programs, "program_variants": variants,
+            "profiles": profiles,
             "device_levels": levels, "train_entry": train_entry,
             "presets": presets, "train_then_register": ttr,
             "eval": evaluation,
