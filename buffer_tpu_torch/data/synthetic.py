@@ -1,7 +1,9 @@
-"""Synthetic fragment pairs for smoke tests, gates and measurements: a
-3DMatch-like surface pair, a 3DMatch-like room pair and a KITTI-like LiDAR
-pair (numpy copies of the generators of ``buffer_tpu/data/synthetic.py``
-and of bench.py's surface, same draws in the same order), and
+"""Synthetic fragment pairs for smoke tests, gates and measurements:
+bench.py's 3DMatch pair (:func:`bench_pair`), 3DMatch-like surface pairs
+of any seed (:func:`surface_pair`: bench.py's surface, a rotation of its
+own), a 3DMatch-like room pair and a KITTI-like LiDAR pair (numpy copies of
+the generators of ``buffer_tpu/data/synthetic.py``, same draws in the same
+order; ``lidar_pair(cfg, 13)`` is bench.py's KITTI pair), and
 :func:`icp_check_gt`, an independent check of a pair's ground truth."""
 
 from __future__ import annotations
@@ -26,20 +28,57 @@ def wavy_surface(rs: np.random.RandomState, n: int, ext: float) -> np.ndarray:
     return raw
 
 
-def surface_pair(cfg: Config, seed: int, device=None):
-    """A 3DMatch-like fragment pair, the surface generator of the reference's
-    bench.py: a wavy surface patch ~3 m x 3 m at ~2 cm spacing (up to 60000
-    points), the second cloud rigidly moved by a random rotation and
-    t = (0.4, -0.2, 0.3).  Returns (PairInputs on ``device``, T [4, 4])."""
-    rs = np.random.RandomState(seed)
+# bench.py:57's rotation: the float32 values of the JAX package's
+# se3.random_rotation(jax.random.PRNGKey(11), 3), which no numpy or torch
+# draw reproduces; each literal is the shortest that parses back to the
+# same float32 (tests/test_torch_bench.py holds them bit for bit)
+BENCH_ROTATION = np.array([[-0.14030285, 0.98311013, 0.117514044],
+                           [-0.26357946, 0.0773187, -0.961534],
+                           [-0.9543799, -0.16588026, 0.2482796]], np.float32)
+BENCH_TRANSLATION = (0.4, -0.2, 0.3)
+
+
+def _surface_raw(cfg: Config, rs: np.random.RandomState) -> np.ndarray:
+    """bench.py's surface at ``cfg``'s plan: up to 60000 points, the extent
+    scaled so that the spacing stays ~2 cm."""
     n_raw = min(cfg.static.raw_points, 60000)
-    raw = wavy_surface(rs, n_raw, 1.5 * np.sqrt(n_raw / 60000.0))
-    R = se3.random_rotation(torch.from_numpy(rs.rand(3).astype(np.float32)), 3)
-    T = se3.integrate_trans(R, torch.tensor([0.4, -0.2, 0.3])).numpy()
+    return wavy_surface(rs, n_raw, 1.5 * np.sqrt(n_raw / 60000.0))
+
+
+def _moved_pair(cfg: Config, raw, R: torch.Tensor, rs, device):
+    """(PairInputs of ``raw`` and ``raw`` moved by ``R`` and
+    BENCH_TRANSLATION, T [4, 4]); ``prepare_pair`` draws from ``rs``."""
+    T = se3.integrate_trans(R, torch.tensor(BENCH_TRANSLATION)).numpy()
     tgt = (raw @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
     inputs = prepare_pair(cfg, raw, tgt, rs=rs, already_downsampled=True,
                           device=device)
     return inputs, T
+
+
+def bench_pair(cfg: Config, device=None):
+    """bench.py's 3DMatch pair (``bench.synthetic_pair(cfg, seed=0)``,
+    bench.py:34-63), array for array: :func:`wavy_surface` from
+    ``RandomState(0)``, the second cloud moved by BENCH_ROTATION and
+    t = (0.4, -0.2, 0.3), then ``prepare_pair`` on the same stream.
+    Returns (PairInputs on ``device``, T [4, 4] float32)."""
+    rs = np.random.RandomState(0)
+    raw = _surface_raw(cfg, rs)
+    return _moved_pair(cfg, raw, torch.from_numpy(BENCH_ROTATION), rs, device)
+
+
+def surface_pair(cfg: Config, seed: int, device=None):
+    """A 3DMatch-like fragment pair on bench.py's surface: a wavy surface
+    patch ~3 m x 3 m at ~2 cm spacing (up to 60000 points) from
+    ``RandomState(seed)``, the second cloud rigidly moved by a rotation
+    drawn from the same stream (``rs.rand(3)``, where bench.py takes a JAX
+    key) and t = (0.4, -0.2, 0.3).  So the surface of seed 0 is bench.py's
+    but the pair is not: the rotation and every later draw of
+    ``prepare_pair`` differ; :func:`bench_pair` is bench.py's pair.
+    Returns (PairInputs on ``device``, T [4, 4])."""
+    rs = np.random.RandomState(seed)
+    raw = _surface_raw(cfg, rs)
+    R = se3.random_rotation(torch.from_numpy(rs.rand(3).astype(np.float32)), 3)
+    return _moved_pair(cfg, raw, R, rs, device)
 
 
 def make_room_pair(cfg: Config, rs: np.random.RandomState, overlap=0.7,

@@ -53,14 +53,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from buffer_tpu_torch.config import make_cfg
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline.registration import make_register_fn
-    from buffer_tpu_torch.scripts.profile_stages import bench_model, bench_pair
+    from buffer_tpu_torch.scripts.profile_stages import (bench_model,
+                                                         profile_pair)
     from buffer_tpu_torch.utils.profiling import card_line
 
     dev = resolve_device(None)
     cuda.build_all()
     cfg = make_cfg(args.config)
     model, weights = bench_model(cfg, args.torch_weights, dev)
-    inputs, _, draws = bench_pair(cfg, dev)
+    inputs, _, draws = profile_pair(cfg, dev)
     fn = make_register_fn(model, device=dev)
     for _ in range(2):
         fn(inputs, draws)

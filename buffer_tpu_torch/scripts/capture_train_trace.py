@@ -4,8 +4,9 @@
     python -m buffer_tpu_torch.scripts.capture_train_trace [--stage Desc]
         [--iters 4] [--out DIR]
 
-At the full 3DMatch plan, on the benchmark pair with its ground-truth pose,
-seeded random weights and draws (as ``profile_train``): the stage's
+At the full 3DMatch plan, on ``profile_stages``' pair with its
+ground-truth pose, seeded random weights and draws (as ``profile_train``):
+the stage's
 ``make_train_step`` is called twice (the eager step and capture, then a
 replay), then ``--iters`` replays run inside a trace and one
 ``annotate("replays")`` span.  Prints one JSON line with the trace's path;
@@ -41,7 +42,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.models.composite import BufferModel
     from buffer_tpu_torch.pipeline.train_forward import make_train_draws
-    from buffer_tpu_torch.scripts.profile_stages import bench_pair
+    from buffer_tpu_torch.scripts.profile_stages import profile_pair
     from buffer_tpu_torch.train.trainer import (TrainBatch, make_optimizer,
                                                 make_train_step)
     from buffer_tpu_torch.utils.profiling import card_line
@@ -52,7 +53,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     model = BufferModel(cfg, seed=0).to(dev)
     opt, _ = make_optimizer(cfg, model, args.stage)
     fn = make_train_step(model, opt, args.stage, DET_MARGIN, dev)
-    inputs, T, _ = bench_pair(cfg, dev)
+    inputs, T, _ = profile_pair(cfg, dev)
     batch = TrainBatch(inputs, torch.as_tensor(T, device=dev))
     draws = make_train_draws(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     for _ in range(2):

@@ -4,9 +4,9 @@ the repository's ``scripts/profile_stages.py``):
     python -m buffer_tpu_torch.scripts.profile_stages --config {3DMatch,KITTI}
         [--torch-weights DIR]
 
-The pair is the benchmark's: bench.py's wavy surface
-(:func:`~buffer_tpu_torch.data.synthetic.surface_pair`, seed 0) for
-3DMatch, :func:`~buffer_tpu_torch.data.synthetic.lidar_pair` (seed 13) for
+The pair is ``chip_smoke.py``'s first: bench.py's wavy surface with a
+rotation of its own (:func:`~buffer_tpu_torch.data.synthetic.surface_pair`,
+seed 0; bench.py's pair is ``data.synthetic.bench_pair``) for 3DMatch, :func:`~buffer_tpu_torch.data.synthetic.lidar_pair` (seed 13) for
 KITTI, at the preset's full static plan, with draws from a generator
 seeded 0 and seeded random weights (``BufferModel(cfg, seed=0)``) or a
 reference snapshot (``--torch-weights``).  Everything runs under
@@ -59,8 +59,8 @@ def budget_name(boost: bool) -> str:
     return "boost" if boost else "base"
 
 
-def bench_pair(cfg, dev):
-    """(PairInputs, ground truth T [4, 4], draws) of the benchmark pair of
+def profile_pair(cfg, dev):
+    """(PairInputs, ground truth T [4, 4], draws) of the profiled pair of
     ``cfg``'s dataset on ``dev``."""
     from buffer_tpu_torch.data.synthetic import lidar_pair, surface_pair
     from buffer_tpu_torch.pipeline.registration import make_draws
@@ -307,7 +307,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cuda.build_all()
     cfg = make_cfg(args.config)
     model, weights = bench_model(cfg, args.torch_weights, dev)
-    inputs, _, draws = bench_pair(cfg, dev)
+    inputs, _, draws = profile_pair(cfg, dev)
     out = run(cfg, model, inputs, draws, dev)
     print(json.dumps({"card": card_line(), "weights": weights, **out}))
     return 0

@@ -6,7 +6,7 @@
 
 For each stage, a fresh ``BufferModel(cfg, seed=0)``, ``make_optimizer``'s
 Adam and the compiled step (``train.trainer.make_train_step``: one CUDA
-graph) on the benchmark pair (bench.py's wavy surface, seed 0) with its
+graph) on ``profile_stages``' pair (``surface_pair``, seed 0) with its
 ground-truth pose and draws from a generator seeded 0: the first call (the
 eager step, then the capture), then the replay's device ms by
 :func:`~buffer_tpu_torch.utils.profiling.replay_time` (the same
@@ -138,14 +138,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from buffer_tpu_torch.config import make_cfg
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline.train_forward import make_train_draws
-    from buffer_tpu_torch.scripts.profile_stages import bench_pair
+    from buffer_tpu_torch.scripts.profile_stages import profile_pair
     from buffer_tpu_torch.train.trainer import TrainBatch
     from buffer_tpu_torch.utils.profiling import card_line
 
     dev = resolve_device(None)
     cuda.build_all()
     cfg = make_cfg("3DMatch")
-    inputs, T, _ = bench_pair(cfg, dev)
+    inputs, T, _ = profile_pair(cfg, dev)
     batch = TrainBatch(inputs, torch.as_tensor(T, device=dev))
     draws = make_train_draws(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     out = {"card": card_line(), "config": "3DMatch", "weights": "random, seed 0",

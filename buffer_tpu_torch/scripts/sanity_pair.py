@@ -4,9 +4,9 @@ repository's ``scripts/sanity_pair.py``):
     python -m buffer_tpu_torch.scripts.sanity_pair [--torch-weights DIR]
         [--tiny --device cpu]
 
-Registers the benchmark's 3DMatch pairs (bench.py's wavy surface, seeds 0,
-1 and 2, each with draws from a generator seeded by its seed) through the
-compiled program (``make_register_fn``) with a reference snapshot
+Registers ``chip_smoke.py``'s 3DMatch pairs (``data.synthetic.
+surface_pair``: bench.py's wavy surface, seeds 0, 1 and 2, each with draws
+from a generator seeded by its seed) through the compiled program (``make_register_fn``) with a reference snapshot
 (``--torch-weights``: ``<stage>/best.pth``, through
 ``compat.torch_convert``) or, without one, seeded random weights, and says
 which.  Prints one JSON line: each pair's RTE (m), RRE (degrees), mutual

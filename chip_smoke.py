@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives twenty-one paths, each with every kernel launch counter set to 0
+2. Drives twenty-two paths, each with every kernel launch counter set to 0
    just before it and read just after (in each rank's own process for the
    data-parallel ones); every kernel of a path must have run on every pair
    (or step) of it, as often as the path's table says:
@@ -39,6 +39,17 @@
      (``low_match_th`` above any count), the base tail, ``fused_desc =
      False`` and device levels, each replay bit-equal to its eager pair;
      weights loaded in place replay, a replaced parameter raises;
+   * "bench": the benchmark entry point (``buffer_tpu_torch.bench.main``)
+     on 3DMatch and KITTI at full size (``bench_path``): bench.py's pairs,
+     seeded random weights, the program's first call then 3 runs of 2 and
+     of 12 calls differenced, and one run of 12 between CUDA events.  Its
+     one JSON line is printed; its last timed call's result (pose, mutual
+     count, every field) bit-equal to ``register_pair`` on the bench's pair
+     rebuilt here with the last iteration's draws; a timed replay launching
+     the preset's table (every call of the run too); ``value`` finite and
+     above 0 and ``1000 / value`` equal to ``ms_per_pair`` to their
+     rounding; its ms/pair printed beside the program line's (other pairs:
+     not gated);
    * "profiles": the measurement entry points through their ``main(argv)``
      at full width (``profiles_path``): ``scripts.profile_stages`` on
      3DMatch and KITTI (each stage's rows, chained, bit-equal to
@@ -311,16 +322,14 @@ GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
            "spt_pooled": ("spt_kernel",)}
 PROGRAM_TIMED = 6
+# torch.profiler still loses the first kernels of a profiled call now and
+# then, after utils.profiling.settle() too (a train-program replay showed
+# 3 of the 4 banded-kNN launches its counter saw): a profile that shows
+# fewer kernels than the counters is taken again, up to this many times
+PROFILE_ATTEMPTS = 3
 DISPATCH_APIS = (r"(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|"
                  r"cuLaunchKernelEx|cudaGraphLaunch|cudaMemcpyAsync|"
                  r"cudaMemsetAsync)(_v\d+)?")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sm_clock_hz() -> float:
@@ -969,17 +978,9 @@ def train_program_path(path: str, dev, cfg, batches, gen, save_dir: str) -> dict
         end_ev.record()
         end_ev.synchronize()
         replay_ms = start_ev.elapsed_time(end_ev)
-        before = cuda.launch_counts()
-        _, seen, n_kernels, dispatches, kernel_ms = profile_call(
-            lambda: trainer.step(batches[0], draws[0]))
-        rose = {k: v - before[k] for k, v in cuda.launch_counts().items()}
-        want_names = {}
-        for k, v in rose.items():
-            for name in GLOBALS[k]:
-                want_names[name] = want_names.get(name, 0) + v
-        if {n: c for n, c in seen.items() if c or n in want_names} != want_names:
-            raise RuntimeError(f"{path} {stage}: the profiled replay shows "
-                               f"{seen}, its counters rose {rose}")
+        (_, seen, n_kernels, dispatches, kernel_ms), _, attempts = \
+            profiled_launches(f"{path} {stage}",
+                              lambda: trainer.step(batches[0], draws[0]))
         *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
             lambda: tr.train_step(twin, opt, stage, batches[0], draws[0],
                                   margin, dev))
@@ -1000,6 +1001,7 @@ def train_program_path(path: str, dev, cfg, batches, gen, save_dir: str) -> dict
                 "eager_kernel_ms": eager_kernel_ms,
                 "kernels_per_replay": n_kernels, "eager_kernels": eager_kernels,
                 "profiled_kernels": {n: c for n, c in seen.items() if c},
+                "profiles_taken": attempts,
                 "default_mode": {"loss_rel_err": loss_rel,
                                  "param_max_abs_err": param_err,
                                  "params_differing": param_diffs,
@@ -1696,6 +1698,39 @@ def profile_call(fn):
             sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
 
 
+def profiled_launches(path: str, fn, ok=lambda out: True):
+    """``profile_call(fn)`` held to the launch counters: the profile's
+    ``__global__`` names show each kernel as often as its counter rose in
+    the call, and no other, and ``ok(fn's output)`` holds.  A profile that
+    shows fewer kernels than the counters, and none more, lost records: it
+    is taken again, up to PROFILE_ATTEMPTS profiles.  Returns
+    (``profile_call``'s tuple, the counters' rise, the profiles taken)."""
+    from buffer_tpu_torch.kernels import cuda
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = cuda.launch_counts()
+        prof = profile_call(fn)
+        rose = {k: v - before[k] for k, v in cuda.launch_counts().items()}
+        want = {}
+        for k, v in rose.items():
+            for name in GLOBALS[k]:
+                want[name] = want.get(name, 0) + v
+        out, seen, n_kernels, _, kernel_ms = prof
+        if not ok(out):
+            raise RuntimeError(f"{path}: the profiled call's result differs")
+        shown = {n: c for n, c in seen.items() if c or n in want}
+        if shown == want:
+            return prof, rose, attempt
+        lost = all(c <= want.get(n, 0) for n, c in shown.items())
+        print(json.dumps({"profile_lost_records": path, "attempt": attempt,
+                          "seen": seen, "rose": rose,
+                          "kernels": n_kernels}), flush=True)
+        if not lost:
+            break
+    raise RuntimeError(f"{path}: the profiled call shows {seen} "
+                       f"({n_kernels} kernels, {kernel_ms} ms), its "
+                       f"counters rose {rose}")
+
+
 def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
     """The compiled program (``make_register_fn``) on a path's pairs and
     draws, every count set to 0 just before and read just after: two
@@ -1762,19 +1797,9 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
     end.record()
     end.synchronize()
     replay_ms = start.elapsed_time(end)
-    before = cuda.launch_counts()
-    res, seen, n_kernels, dispatches, kernel_ms = profile_call(
-        lambda: fn(pairs[0], draws[0]))
-    rose = {k: v - before[k] for k, v in cuda.launch_counts().items()}
-    want = {}
-    for k, v in rose.items():
-        for name in GLOBALS[k]:
-            want[name] = want.get(name, 0) + v
-    if ({n: c for n, c in seen.items() if c or n in want} != want
-            or not results_equal(res, eager[0])):
-        raise RuntimeError(f"{path}: the profiled replay shows {seen} "
-                           f"({n_kernels} kernels, {kernel_ms} ms), its "
-                           f"counters rose {rose}")
+    (res, seen, n_kernels, dispatches, kernel_ms), _, attempts = \
+        profiled_launches(path, lambda: fn(pairs[0], draws[0]),
+                          lambda out: results_equal(out, eager[0]))
     *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
         lambda: registration.register_pair(model, pairs[0], draws[0],
                                            device=dev))
@@ -1790,6 +1815,7 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
             "eager_kernel_ms": eager_kernel_ms,
             "kernels_per_replay": n_kernels, "eager_kernels": eager_kernels,
             "profiled_kernels": {n: c for n, c in seen.items() if c},
+            "profiles_taken": attempts,
             "launches": counts, "tails": sorted(program.tails)}
     print(json.dumps(line))
     return line
@@ -1874,6 +1900,104 @@ def script_line(main, argv) -> dict:
     return json.loads(lines[-1])
 
 
+def rounding_agrees(value: float, ms: float) -> bool:
+    """``1000 / value`` equals ``ms`` to their rounding (value to 3
+    decimals, ms to 2: the bench's line)."""
+    return abs(1e3 / value - ms) <= (0.005 + 1e3 * 0.0005
+                                     / (value * (value - 0.0005)) + 1e-9)
+
+
+def bench_path(dev, programs) -> dict:
+    """The benchmark entry point at full size, 3DMatch then KITTI, every
+    count set to 0 just before each run and read just after: its one JSON
+    line; the last timed call's result bit-equal to ``register_pair`` on
+    the bench's pair and the last iteration's draws, both rebuilt here;
+    one timed replay (and every call: the first call's warm-up included)
+    launching the preset's table; ``value`` finite and above 0, and
+    ``1000 / value`` equal to ``ms_per_pair`` to rounding.  Prints the line
+    and its ms/pair beside the program line's of the same preset (other
+    pairs, so not gated)."""
+    import io
+    import torch
+    from buffer_tpu_torch import bench
+    from buffer_tpu_torch.data.synthetic import bench_pair, lidar_pair
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
+    program_ms = {p["path"].replace(" program", ""): p["ms_per_pair"]
+                  for p in programs}
+    out = {}
+    for config in ("3DMatch", "KITTI"):
+        # keep the last call's result only: recorded_programs would
+        # synchronize inside the timed runs
+        last = []
+        make = registration.make_register_fn
+
+        def keeping(model, device=None, **kw):
+            fn = make(model, device=device, **kw)
+
+            def kept(inputs, draws):
+                res = fn(inputs, draws)
+                last[:] = [model, inputs, draws, res]
+                return res
+            kept.programs = getattr(fn, "programs", None)
+            return kept
+
+        buf = io.StringIO()
+        cuda.reset_launches()
+        registration.make_register_fn = keeping
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main(["--config", config])
+        finally:
+            registration.make_register_fn = make
+        counts = cuda.launch_counts()
+        lines = buf.getvalue().strip().splitlines()
+        if rc != 0 or len(lines) != 1:
+            raise RuntimeError(f"bench {config}: returned {rc}, printed "
+                               f"{len(lines)} lines")
+        print(lines[0], flush=True)
+        line = json.loads(lines[0])
+        ex = line["extra"]
+        value = line["value"]
+        if not (math.isfinite(value) and value > 0
+                and rounding_agrees(value, ex["ms_per_pair"])):
+            raise RuntimeError(f"bench {config}: value {value} pairs/s against "
+                               f"{ex['ms_per_pair']} ms/pair")
+        table = PER_PAIR[config]
+        if ex["launches_per_pair"] != table:
+            raise RuntimeError(f"bench {config}: a timed replay launched "
+                               f"{ex['launches_per_pair']}, expected {table}")
+        check_launches(f"{config} bench", {k: v / ex["calls"]
+                                           for k, v in counts.items()}, table)
+        if (ex["platform"], ex["weights"], ex["config"]) != ("gpu", "random",
+                                                             config):
+            raise RuntimeError(f"bench {config}: {ex}")
+        model, inputs, draws, res = last
+        cfg = model.cfg
+        pair, T = (lidar_pair(cfg, 13, dev) if config == "KITTI"
+                   else bench_pair(cfg, dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        want_draws = [registration.make_draws(cfg, gen, dev)
+                      for _ in range(ex["timed_pairs"])][-1]
+        for name, a, b in zip((*pair._fields, *draws._fields),
+                              (*inputs, *draws), (*pair, *want_draws)):
+            if not (a is None and b is None or torch.equal(a, b)):
+                raise RuntimeError(f"bench {config}: the timed call's {name} "
+                                   "is not the bench pair's / last draws'")
+        want = registration.register_pair(model, pair, want_draws, device=dev)
+        if not (results_equal(res, want)
+                and int(res.num_mutual) == ex["mutual_matches"]):
+            raise RuntimeError(f"bench {config}: the last timed call differs "
+                               "from register_pair")
+        side = {"bench": config, "ms_per_pair": ex["ms_per_pair"],
+                "device_ms_per_pair": ex["device_ms_per_pair"],
+                "program_line_ms_per_pair": program_ms[config],
+                "pairs": "the bench's pair against chip_smoke's own"}
+        print(json.dumps(side), flush=True)
+        out[config] = {"line": line, "launches": counts, **side}
+    return out
+
+
 def rows_ok(what: str, rows) -> None:
     """Every row's ms finite and above 0."""
     bad = [r for r in rows if not (math.isfinite(r["ms"]) and r["ms"] > 0)]
@@ -1947,6 +2071,9 @@ def profiles_path(dev, model, pair, draws) -> dict:
                            f"iteration against a replay's {kernel_ms} kernel ms")
     print(json.dumps({"analyze_trace": {
         "depth1_ms_per_iter": ana["ms_per_iter"], "events": ana["events"],
+        "in_part": ana["in_part"],
+        "in_part_ms_per_iter": ana["in_part_ms_per_iter"],
+        "late_ms": ana["late_ms"],
         "replay_kernel_ms": kernel_ms, "ratio": ratio,
         "top": [(r["name"][:60], r["ms_per_iter"], r["count_per_iter"])
                 for r in ana["rows"][:12]]}}), flush=True)
@@ -2242,6 +2369,7 @@ def main() -> int:
     # cuBLAS's deterministic mode (plain_train_check) needs its workspace
     # fixed before the first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from buffer_tpu_torch.utils.profiling import card_line
     print(card_line())
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2268,6 +2396,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     from buffer_tpu_torch.models.composite import BufferModel
     from buffer_tpu_torch.ops import sampling
     from buffer_tpu_torch.pipeline import registration
+    from buffer_tpu_torch.utils.profiling import card_line
 
     t0 = time.time()
     logs = cuda.build_all()
@@ -2343,6 +2472,10 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     variants = program_variants(dev, cfg, pairs, draws, smodel,
                                 sampled_results[0])
     lap("3DMatch program and KITTI program")
+
+    # ---- the benchmark entry point, 3DMatch and KITTI --------------------
+    bench = bench_path(dev, programs)
+    lap("bench")
 
     # ---- the measurement entry points: profiles and traces --------------
     profiles = profiles_path(dev, model, pairs[0], draws[0])
@@ -2731,6 +2864,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
             "programs": programs, "program_variants": variants,
+            "bench": bench,
             "profiles": profiles,
             "device_levels": levels, "train_entry": train_entry,
             "presets": presets, "train_then_register": ttr,

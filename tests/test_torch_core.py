@@ -164,11 +164,13 @@ def test_host_subsample_and_prepare_pair_match():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port with JAX blocked succeeds, and no
-    file of the port or chip_smoke.py names buffer_tpu in an import."""
+    file of the port or chip_smoke.py names buffer_tpu or the repository's
+    bench.py in an import."""
     pkg = REPO / "buffer_tpu_torch"
     mods = sorted("buffer_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
                   for p in pkg.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys; sys.modules['jax'] = None; sys.modules['buffer_tpu'] = None\n"
+            "sys.modules['bench'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n")

@@ -313,17 +313,31 @@ def _jax_analyze():
 
 @pytest.mark.parametrize("seed", range(5))
 def test_depth1_matches_the_jax_script(seed):
-    """The depth-1 merge equals the JAX script's ``depth1`` on random event
-    lists with nested, overlapping and equal-start events."""
+    """On random event lists with nested, overlapping and equal-start
+    events, the depth-1 merge counts the length of the union of their
+    intervals; on the events that the JAX script's ``depth1`` keeps, with
+    those nested in them, it keeps the JAX script's events, each in full."""
     rs = np.random.RandomState(seed)
     n = 60
     events = [{"name": f"k{i}", "ts": int(rs.randint(0, 40)),
                "dur": int(rs.randint(0, 15))} for i in range(n)]
     events += [dict(e, name=e["name"] + "n", dur=max(e["dur"] - 3, 0))
                for e in events[:10]]                     # nested, equal start
-    want = _jax_analyze().depth1(copy.deepcopy(events))
     got = analyze_trace.depth1(copy.deepcopy(events))
-    assert got == want and 0 < len(got) < len(events)
+    union = set().union(*(range(e["ts"], e["ts"] + e["dur"]) for e in events))
+    assert sum(us for _, us in got) == len(union)
+    assert 0 < len(got) < len(events)
+    assert all(0 < us <= e["dur"] or us == e["dur"] == 0 for e, us in got)
+
+    jax_depth1 = _jax_analyze().depth1
+    kept = jax_depth1(copy.deepcopy(events))
+    nested = [e for e in events if any(
+        k["ts"] <= e["ts"] and e["ts"] + e["dur"] <= k["ts"] + k["dur"]
+        for k in kept)]
+    want = jax_depth1(copy.deepcopy(nested))
+    got = analyze_trace.depth1(copy.deepcopy(nested))
+    assert [e for e, _ in got] == want and want == kept
+    assert all(us == e["dur"] for e, us in got)
 
 
 def _write_trace(path, events):
@@ -332,22 +346,34 @@ def _write_trace(path, events):
 
 
 def test_analyze_aggregates_a_small_trace(tmp_path, capsys):
-    """On a hand-made trace: only device events inside the widest
-    ``replays`` span count, a nested one once, kernels aggregate by base
-    name (``--exact``: by full name), per iteration; a directory gives its
-    newest trace."""
-    X = lambda name, cat, ts, dur: {"ph": "X", "name": name, "cat": cat,
-                                    "ts": ts, "dur": dur, "pid": 0, "tid": 0}
+    """On a hand-made trace: only device events launched inside the widest
+    ``replays`` span count (by correlation id: one dated past the span's
+    end counts, one dated inside it but launched after it does not), a
+    nested one not at all, one starting before the previous one ends for
+    its time past it; kernels aggregate by base name (``--exact``: by full
+    name), per iteration; a directory gives its newest trace."""
+    def X(name, cat, ts, dur, corr=None):
+        e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
+             "pid": 0, "tid": 0}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
     events = [
         X("replays", "user_annotation", 100, 1000),
         X("replays", "user_annotation", 1500, 10),
-        X("cudaGraphLaunch", "cuda_runtime", 110, 5),
-        X("void ns::k<4, float>(int, float*)", "kernel", 100, 100),
-        X("void ns::k<4, float>(int, float*)", "kernel", 120, 10),   # nested
-        X("void ns::k<2, int>(int)", "kernel", 300, 50),
-        X("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 400, 20),
-        X("void ns::k<2, int>(int)", "kernel", 1090, 20),            # runs past
-        X("void other(int)", "kernel", 1200, 30),                    # outside
+        X("cudaGraphLaunch", "cuda_runtime", 105, 5, corr=1),
+        X("cudaMemcpyAsync", "cuda_runtime", 390, 5, corr=2),
+        X("cudaLaunchKernel", "cuda_runtime", 1095, 10, corr=3),  # runs past
+        X("cudaLaunchKernel", "cuda_runtime", 1150, 5, corr=4),   # after
+        X("void ns::k<4, float>(int, float*)", "kernel", 110, 100, corr=1),
+        X("void ns::k<4, float>(int, float*)", "kernel", 120, 10, corr=1),
+        X("void ns::k<2, int>(int)", "kernel", 300, 50, corr=1),
+        X("void tail(int)", "kernel", 340, 20, corr=1),          # 10 past
+        X("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 400, 20, corr=2),
+        X("void ns::k<2, int>(int)", "kernel", 1140, 30, corr=1),  # dated late
+        X("void other(int)", "kernel", 1060, 5, corr=4),
+        X("void other(int)", "kernel", 1200, 30, corr=3),
+        X("void other(int)", "kernel", 1300, 30),
         {"ph": "M", "name": "thread_name", "pid": 0, "tid": 0,
          "args": {"name": "stream 7"}},
     ]
@@ -357,19 +383,22 @@ def test_analyze_aggregates_a_small_trace(tmp_path, capsys):
     _write_trace(tmp_path / "2.trace.json.gz", events)
     out = analyze_trace.analyze(analyze_trace.trace_path(str(tmp_path)), iters=2)
     assert out["trace"].endswith("2.trace.json.gz")
-    assert out["events"] == 3 and out["total_ms"] == pytest.approx(0.17)
-    assert out["ms_per_iter"] == pytest.approx(0.085)
+    assert out["events"] == 5 and out["total_ms"] == pytest.approx(0.21)
+    assert out["ms_per_iter"] == pytest.approx(0.105)
+    assert out["in_part"] == 1 and out["in_part_ms_per_iter"] == pytest.approx(0.01)
+    assert out["late_ms"] == pytest.approx(0.07)
     assert [(r["name"], r["ms_per_iter"], r["count_per_iter"]) for r in out["rows"]] \
-        == [("ns::k", pytest.approx(0.075), 1.0),
-            ("Memcpy HtoD", pytest.approx(0.01), 0.5)]
+        == [("ns::k", pytest.approx(0.09), 1.5),
+            ("Memcpy HtoD", pytest.approx(0.01), 0.5),
+            ("tail", pytest.approx(0.005), 0.5)]
     exact = analyze_trace.analyze(str(tmp_path / "2.trace.json.gz"), 2, exact=True)
     assert [r["name"] for r in exact["rows"]] == [
         "void ns::k<4, float>(int, float*)", "void ns::k<2, int>(int)",
-        "Memcpy HtoD (Pageable -> Device)"]
+        "Memcpy HtoD (Pageable -> Device)", "void tail(int)"]
     assert analyze_trace.main([str(tmp_path), "--iters", "2"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith("depth-1: 3 events, 0.170 ms total -> 0.085 ms/iter")
-    assert json.loads(lines[-1])["ms_per_iter"] == pytest.approx(0.085)
+    assert lines[0].startswith("depth-1: 5 events, 0.210 ms total -> 0.105 ms/iter")
+    assert json.loads(lines[-1])["ms_per_iter"] == pytest.approx(0.105)
 
 
 def test_base_name():
