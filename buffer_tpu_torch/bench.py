@@ -2,34 +2,42 @@
 NVIDIA card (counterpart of the repository's ``bench.py``):
 
     python -m buffer_tpu_torch.bench [--size full|small]
-        [--config 3DMatch|KITTI] [--iters N] [--caps N] [--normal-knn N]
-        [--l1 N] [--l2 N] [--torch-weights DIR] [--device D]
+        [--config 3DMatch|KITTI] [--iters N] [--batch P] [--unroll U]
+        [--caps N] [--normal-knn N] [--l1 N] [--l2 N] [--torch-weights DIR]
+        [--device D]
 
-The measured call is the compiled registration program
-(``pipeline.registration.make_register_fn``) as a user calls it: the input
-load, the front graph, the host read of the mutual count and the tail graph
-that the count selects.  The pair is bench.py's: ``data.synthetic.
-bench_pair`` for 3DMatch, ``lidar_pair(cfg, 13)`` for KITTI, at the
-preset's full static plan (``--size small``: the tiny test plan, as
-bench.py).  The weights are a reference snapshot (``--torch-weights``,
-``<stage>/best.pth``) or else seeded random ones; the line says which.
+The measured call is the compiled registration program of P x U pairs
+(``pipeline.registration.make_unrolled_register_fn``) as a user calls it:
+each pair's input load and front graph on its own stream, side by side, the
+one host read of the mutual counts, and each pair's tail graph that its
+count selects.  P and U default as in bench.py:141-143: P is the preset's
+``static.pair_batch`` (1), and U its ``static.pair_unroll`` when P is 1
+(3DMatch and the tiny plan 3, KITTI 1), else 1.  bench.py vmaps P pairs;
+a vmap of ``register_pair`` gives each pair what the pair alone gives, so
+``--batch P`` runs the same unrolled program over P x U pairs.  The pair
+is bench.py's: ``data.synthetic.bench_pair`` for 3DMatch, ``lidar_pair(
+cfg, 13)`` for KITTI, at the preset's full static plan (``--size small``:
+the tiny test plan, as bench.py), in every slot of a call, each slot with
+draws of its own (a replay of graphs has none of XLA's hoisting or CSE,
+so bench.py's input jog has no counterpart).  The weights are a reference
+snapshot (``--torch-weights``, ``<stage>/best.pth``) or else seeded random
+ones; the line says which.
 
 Timing follows bench.py:193-213: after the first call (eager warm-up and
 graph capture, reported as ``compile_s``), runs of ``n_lo = 2`` and
-``n_hi = 2 + iters`` calls back to back, each call on its own draws, the
-host clock around each run with the card synchronized at both ends, the
-least of 3 runs of each length, and ``ms_per_pair = (t_hi - t_lo) /
-(n_hi - n_lo)``.  A replay of graphs has none of XLA's hoisting, CSE or
-layouts, so bench.py's input jog, ``--batch``, ``--unroll`` and ``vmap``
-have no counterpart: one pair a call (``pair_batch = pair_unroll = 1``).
+``n_hi = 2 + iters`` calls back to back, the host clock around each run
+with the card synchronized at both ends, the least of 3 runs of each
+length, and ``ms_per_pair = (t_hi - t_lo) / (n_hi - n_lo) / (P x U)``.
 
 Prints exactly one JSON line with bench.py's keys (``vs_a100_est`` left
-out: it scales by a guessed A100-over-RTX factor, not a measurement) and,
-in ``extra``, the kernel build seconds, device ms a pair (CUDA events over
-an ``n_hi`` run), the timed pairs that took the low-match tail, the launches
-a pair, the weights and the card's name and power limit.  Runs on the CUDA
-card unless ``--device cpu`` is given (then the program is the eager
-``register_pair`` and the card's fields are null).
+out: it scales by a guessed A100-over-RTX factor, not a measurement; the
+sanity pose is the last call's first pair, as bench.py's) and, in
+``extra``, the kernel build seconds, the capture seconds, device ms a pair
+(CUDA events over an ``n_hi`` run), the timed pairs and those of them that
+took the low-match tail, the launches a pair, the weights and the card's
+name and power limit.  Runs on the CUDA card unless ``--device cpu`` is
+given (then the program is the eager ``register_pair`` and the card's
+fields are null).
 """
 
 from __future__ import annotations
@@ -88,6 +96,13 @@ def bench_cfg(args):
     return cfg
 
 
+def pairs_per_call(cfg, args):
+    """(P, U): bench.py:141-143's pairs a call, batched and unrolled."""
+    P = args.batch or cfg.static.pair_batch
+    U = args.unroll or (cfg.static.pair_unroll if P == 1 else 1)
+    return P, U
+
+
 def sanity(pose: np.ndarray, T: np.ndarray):
     """bench.py's (RTE m, RRE degrees) of ``pose`` against ``T``."""
     rte = float(np.linalg.norm(pose[:3, 3] - T[:3, 3]))
@@ -96,31 +111,35 @@ def sanity(pose: np.ndarray, T: np.ndarray):
     return rte, rre
 
 
-def measure(cfg, model, inputs, draws, dev) -> dict:
-    """The program on ``inputs``: its first call, then the differenced runs
-    over ``draws`` (one a call, ``len(draws)`` the long run), then one more
-    long run between CUDA events (on the card).  Returns the numbers and
-    ``results``, the long run's last results."""
+def measure(cfg, model, inputs, draws, dev, per_call: int = 1) -> dict:
+    """The unrolled program of ``per_call`` pairs, each ``inputs``: its first
+    call, then the differenced runs over ``draws`` (``per_call`` a call,
+    pair after pair; ``len(draws) // per_call`` calls the long run), then
+    one more long run between CUDA events (on the card).  Returns the
+    numbers a pair and ``results``, the long run's last results, a pair
+    each."""
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline import registration
     on_card = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
-    fn = registration.make_register_fn(model, device=dev)
+    fn = registration.make_unrolled_register_fn(model, per_call, device=dev)
+    groups = [draws[k:k + per_call]
+              for k in range(0, len(draws) - per_call + 1, per_call)]
     results, calls = [], [0]
 
     def run(n: int) -> None:
         sync()
-        results[:] = [fn(inputs, d) for d in draws[:n]]
+        results[:] = [fn([inputs] * per_call, g) for g in groups[:n]]
         sync()
         calls[0] += n
 
-    n_hi = len(draws)
+    n_hi = len(groups)
     with registration.full_fp32():
         t0 = time.perf_counter()
-        fn(inputs, draws[0])
+        fn([inputs] * per_call, groups[0])
         sync()
         compile_s = time.perf_counter() - t0
-        ms = differenced_ms(run, N_LO, n_hi, REPS)
+        ms = differenced_ms(run, N_LO, n_hi, REPS) / per_call
         device_ms = launches = capture_s = None
         if on_card:
             (program,) = fn.programs.values()
@@ -133,16 +152,18 @@ def measure(cfg, model, inputs, draws, dev) -> dict:
             run(n_hi)
             end.record()
             end.synchronize()
-            device_ms = start.elapsed_time(end) / n_hi
-            launches = {k: (n - before[k]) / n_hi
+            device_ms = start.elapsed_time(end) / (n_hi * per_call)
+            launches = {k: (n - before[k]) / (n_hi * per_call)
                         for k, n in cuda.launch_counts().items()
                         if n != before[k]}
     if not ms > 0:
         raise RuntimeError(f"differenced time {ms} ms a pair is not positive: "
                            "the runs' noise exceeds their work; raise --iters")
+    pairs = [type(r)(*(t[u] for t in r)) for r in results
+             for u in range(per_call)]
     return {"ms_per_pair": ms, "compile_s": compile_s, "capture_s": capture_s,
             "device_ms_per_pair": device_ms, "launches_per_pair": launches,
-            "calls": 1 + calls[0], "results": list(results)}
+            "calls": 1 + calls[0], "results": pairs}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -151,6 +172,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", default="3DMatch", choices=["3DMatch", "KITTI"],
                     help="static plan / weights / scene family to bench")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="pairs a call (bench.py's vmap; here the same "
+                         "unrolled program); default: static.pair_batch")
+    ap.add_argument("--unroll", type=int, default=None,
+                    help="independent pairs a call, their chains side by "
+                         "side; default: static.pair_unroll when the "
+                         "batch is 1")
     ap.add_argument("--caps", type=int, default=None,
                     help="override neighbor/pool caps (all levels)")
     ap.add_argument("--normal-knn", type=int, default=None)
@@ -170,8 +198,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.iters < 1:
-        ap.error("--iters must be at least 1")
+    for flag in ("iters", "batch", "unroll"):
+        if getattr(args, flag) is not None and getattr(args, flag) < 1:
+            ap.error(f"--{flag} must be at least 1")
 
     from buffer_tpu_torch import resolve_device
     from buffer_tpu_torch.data.synthetic import bench_pair, lidar_pair
@@ -195,12 +224,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         inputs, T = lidar_pair(cfg, 13, dev)
     else:
         inputs, T = bench_pair(cfg, dev)
+    P, U = pairs_per_call(cfg, args)
     gen = torch.Generator(device=dev).manual_seed(0)
     draws = [registration.make_draws(cfg, gen, dev)
-             for _ in range(N_LO + args.iters)]
+             for _ in range((N_LO + args.iters) * P * U)]
 
-    m = measure(cfg, model, inputs, draws, dev)
-    last = m["results"][-1]
+    m = measure(cfg, model, inputs, draws, dev, P * U)
+    last = m["results"][-P * U]
     rte, rre = sanity(last.pose.cpu().numpy(), T)
     value = 1e3 / m["ms_per_pair"]
     print(json.dumps({
@@ -218,8 +248,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "platform": "gpu" if on_card else "cpu",
             "size": args.size,
             "config": args.config,
-            "pair_batch": 1,
-            "pair_unroll": 1,
+            "pair_batch": P,
+            "pair_unroll": U,
             "build_s": build_s,
             "capture_s": m["capture_s"],
             "device_ms_per_pair": m["device_ms_per_pair"],

@@ -139,7 +139,9 @@ class StaticConfig:
     # 4x hypotheses and IRLS 2x rounds
     low_match_boost: bool = True
     low_match_th: int = 400
-    # pairs per step in the reference's bench; unused by the port
+    # pairs a call of the bench (--batch; a vmap in bench.py) and
+    # independent pairs a program (--unroll; run_eval's groups): U graph
+    # chains side by side on the card (make_unrolled_register_fn)
     pair_batch: int = 1
     pair_unroll: int = 3
 

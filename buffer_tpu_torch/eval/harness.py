@@ -1,14 +1,16 @@
 """Evaluation harness (counterpart of ``buffer_tpu/eval/harness.py``;
 reference ``ThreeDMatch/test.py``, ``KITTI/test.py``,
-``generalization/*/test.py``): every pair of a dataset through
-:func:`~buffer_tpu_torch.pipeline.registration.make_register_fn` (the
-compiled registration program: CUDA graphs on the card), Redwood
+``generalization/*/test.py``): every pair of a dataset through the
+compiled registration program (CUDA graphs on the card), Redwood
 trajectories written per scene, DGR recall under each dataset's RTE/RRE
 thresholds and, for 3DMatch and 3DLoMatch, the covariance-weighted
 registration recall against ``gt.info``.
 
-Pairs are registered one at a time on the device, or, in a process group
-of more than one rank, one pair a rank in rounds (:func:`make_dp_register`,
+On one device pairs are registered in groups of ``static.pair_unroll``
+through :func:`~buffer_tpu_torch.pipeline.registration.
+make_unrolled_register_fn` (U pairs' graphs side by side on the card), as
+the JAX package compiles U pairs into one program; in a process group of
+more than one rank, one pair a rank in rounds (:func:`make_dp_register`,
 the JAX package's data parallelism over pairs).  Host prep (dataset IO,
 voxelization and ``prepare_pair``) runs on a producer thread (rank 0's) and
 yields CPU tensors only; the producer never touches the device (so the
@@ -34,9 +36,8 @@ from buffer_tpu_torch.config import Config
 from buffer_tpu_torch.data.preprocess import prepare_pair
 from buffer_tpu_torch.eval import metrics
 from buffer_tpu_torch.models.composite import BufferModel
-from buffer_tpu_torch.pipeline.registration import (Draws, PairInputs,
-                                                    make_draws,
-                                                    make_register_fn)
+from buffer_tpu_torch.pipeline.registration import (
+    Draws, PairInputs, make_draws, make_register_fn, make_unrolled_register_fn)
 from buffer_tpu_torch.utils.dist import group_size
 from buffer_tpu_torch.utils.logging import MetricLogger, Timer
 
@@ -110,14 +111,18 @@ def run_eval(cfg: Config, model: BufferModel, dataset: Sequence,
     default device: the CUDA card).
 
     Pair i's random draws come from ``draws_fn(i)`` when given, otherwise
-    from one device generator seeded with ``seed``, pair after pair.  Pairs
-    go through one :func:`make_register_fn` program built for the model and
-    device (its first pair carries warm-up and capture, as JAX's first pair
-    carries its compile).  ``model_time`` is the host clock around draws +
-    the program's call up to a device synchronize, averaged over the pairs
-    registered; ``data_time`` the producer's host prep a pair.  With
-    ``log_dir``, writes each scene's ``est.log`` (inverse poses) and, for
-    3DMatch and 3DLoMatch, adds the registration recall.  Returns
+    from one device generator seeded with ``seed``, pair after pair.  On
+    one device the pairs go in groups of U = ``cfg.static.pair_unroll`` (1
+    for a single pair) through one :func:`make_unrolled_register_fn`
+    program built for the model and device (the first group carries
+    warm-up and capture, as JAX's first step carries its compile); the
+    last group is padded with its last pair, whose result is discarded
+    (``buffer_tpu/eval/harness.py:160-177``).  ``model_time`` is the host
+    clock around draws + the program's call up to a device synchronize,
+    averaged over the groups and divided by U: a time a pair;
+    ``data_time`` the producer's host prep a pair.  With ``log_dir``,
+    writes each scene's ``est.log`` (inverse poses) and, for 3DMatch and
+    3DLoMatch, adds the registration recall.  Returns
     ``recall``, ``TE``, ``RE``, ``data_time``, ``model_time``, ``pairs``
     (and ``registration_recall``).
 
@@ -185,14 +190,19 @@ def run_eval(cfg: Config, model: BufferModel, dataset: Sequence,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    U = 1
     if not use_dp:
-        register = make_register_fn(model, device=dev)
-        for i, item, inputs in _prefetch(cfg, dataset, n, rs, data_timer):
+        U = max(1, int(cfg.static.pair_unroll)) if n > 1 else 1
+        register = make_unrolled_register_fn(model, U, device=dev)
+        for group in _chunks(_prefetch(cfg, dataset, n, rs, data_timer), U):
+            batch = group + [group[-1]] * (U - len(group))
             model_timer.tic()
-            res = register(inputs, draws_for(i))
+            res = register([inputs for _, _, inputs in batch],
+                           [draws_for(i) for i, _, _ in batch])
             synchronize()
             model_timer.toc()
-            record(i, item, res.pose, res.num_mutual)
+            for j, (i, item, _) in enumerate(group):
+                record(i, item, res.pose[j], res.num_mutual[j])
     else:
         dp_fn = make_dp_register(model)
         rounds = ((_chunks(_prefetch(cfg, dataset, n, rs, data_timer), world))
@@ -217,7 +227,7 @@ def run_eval(cfg: Config, model: BufferModel, dataset: Sequence,
     if rank == 0:
         out = metrics.dgr_recall(np.array(states).reshape(-1, 3))
         out["data_time"] = data_timer.avg
-        out["model_time"] = model_timer.avg
+        out["model_time"] = model_timer.avg / U
         out["pairs"] = len(states)
         if log_dir is not None:
             for scene, entries in entries_by_scene.items():

@@ -18,7 +18,9 @@ convolutions), as the reference runs at ``default_matmul_precision
 :func:`register_pair` runs a pair operator by operator;
 :func:`make_register_fn` runs the same two parts, :func:`pair_front` and
 :func:`pair_tail`, as captured CUDA graphs, as the JAX package runs
-``register_pair`` as one jitted program.
+``register_pair`` as one jitted program; :func:`make_unrolled_register_fn`
+runs U pairs' graphs side by side on streams of their own, as the JAX
+package compiles U ``register_pair`` traces into one program.
 """
 
 from __future__ import annotations
@@ -378,15 +380,30 @@ def _clone(x):
     return x
 
 
-def capture_graph(run, pool):
-    """Captures ``run()`` as a CUDA graph in memory pool ``pool``; returns
+def _stack(xs: list):
+    """The nests ``xs`` (equal structure) with every tensor stacked along a
+    new leading axis; other leaves are taken from the first."""
+    x = xs[0]
+    if isinstance(x, torch.Tensor):
+        return torch.stack(xs)
+    if isinstance(x, dict):
+        return {k: _stack([y[k] for y in xs]) for k in x}
+    if isinstance(x, tuple):
+        items = [_stack(list(ys)) for ys in zip(*xs)]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def capture_graph(run, pool, stream=None):
+    """Captures ``run()`` as a CUDA graph in memory pool ``pool`` on
+    ``stream`` (default: PyTorch's capture stream); returns
     (the graph, ``run``'s outputs, the kernels' launch counts of one
     replay).  The counts are recorded at capture and taken back, since a
     capture launches nothing; a caller adds them on each replay."""
     graph = torch.cuda.CUDAGraph()
     before = cuda.launch_counts()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = run()
     finally:
         after = cuda.launch_counts()
@@ -403,16 +420,21 @@ def _state_ptrs(model: BufferModel) -> tuple:
 class _GraphProgram:
     """One input signature's registration as CUDA graphs: the front, and a
     tail for each budget (base and, with ``static.low_match_boost``, the
-    low-match one).  Each call copies the caller's tensors into the static
-    input buffers, replays the front, reads the mutual count (the one host
-    read of a pair), replays the taken tail and returns clones of the
-    outputs.
+    low-match one).  A call copies the caller's tensors into the static
+    input buffers and replays the front (:meth:`replay_front`), reads the
+    mutual count, replays the taken tail (:meth:`replay_tail`) and returns
+    copies of the outputs.
 
-    The graphs share one memory pool.  Every tensor a later graph reads
-    (the front's outputs, the static inputs) and every graph's outputs stay
-    held by the program, and the graphs replay one after another on one
-    stream, so a graph only reuses memory that no live output of another
-    occupies.
+    Each program has a stream and a graph memory pool of its own.  Its
+    warm-up, captures and replays run on its stream, forked from the
+    caller's stream and joined back to it, so the cuBLAS workspace that a
+    capture bakes in is its stream's alone, and the programs of an
+    unrolled group (:func:`make_unrolled_register_fn`) replay side by side
+    without sharing memory.  Within a program the graphs replay one after
+    another on its stream, and every tensor a later graph reads (the
+    front's outputs, the static inputs) and every graph's outputs stay
+    held by the program, so a graph only reuses pool memory that no live
+    output of another occupies.
 
     A replay runs no Python, so the kernels' launch counts of each graph
     are recorded at capture (and taken back: a capture launches nothing)
@@ -424,38 +446,40 @@ class _GraphProgram:
         self.model, self.cfg, self.dev = model, model.cfg, dev
         self.return_intermediates = return_intermediates
         self.state = _state_ptrs(model)
+        self.stream = torch.cuda.Stream(dev)
         empty = lambda t: None if t is None else torch.empty(
             t.shape, dtype=t.dtype, device=dev)
         self.inputs = PairInputs(*(empty(t) for t in inputs))
         self.draws = Draws(*(empty(t) for t in draws))
-        self._load(inputs, draws)
         budgets = ((False, True) if self.cfg.static.low_match_boost
                    else (False,))
-        stream = torch.cuda.current_stream(dev)
-        with torch.no_grad(), full_fp32():
-            # warm-up: an eager run on a side stream, both tails included
-            # (first-use builds, handles and attributes happen here, not
-            # during capture); its result is the first call's
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
-                front, inter = pair_front(model, self.inputs, self.draws)
-                boost = boost_taken(self.cfg, front.num_mutual)
-                tails = {b: pair_tail(self.cfg, front,
-                                      *tail_budget(self.cfg, self.draws, b))
-                         for b in budgets}
-            stream.wait_stream(side)
-            self.first = self._result(front, inter, *tails[boost])
-            del front, inter, tails
+        caller = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(caller)
+        with torch.no_grad(), full_fp32(), torch.cuda.stream(self.stream):
+            # warm-up: an eager run, both tails included (first-use builds,
+            # handles and attributes happen here, not during capture); its
+            # result is the first call's
+            self._load(inputs, draws)
+            front, inter = pair_front(model, self.inputs, self.draws)
+            boost = boost_taken(self.cfg, front.num_mutual)
+            tails = {b: pair_tail(self.cfg, front,
+                                  *tail_budget(self.cfg, self.draws, b))
+                     for b in budgets}
+            first = self._outputs(front, inter, *tails[boost])
+            caller.wait_stream(self.stream)
+            with torch.cuda.stream(caller):
+                self.first = _clone(first)
+            del front, inter, tails, first
 
             t0 = time.perf_counter()
-            pool = torch.cuda.graph_pool_handle()
+            self.pool = torch.cuda.graph_pool_handle()
             self.front_graph, (self.front, self.inter), self.front_launches = \
                 capture_graph(lambda: pair_front(model, self.inputs,
-                                                 self.draws), pool)
+                                                 self.draws), self.pool,
+                              self.stream)
             self.tails = {b: capture_graph(lambda b=b: pair_tail(
                 self.cfg, self.front, *tail_budget(self.cfg, self.draws, b)),
-                pool) for b in budgets}
+                self.pool, self.stream) for b in budgets}
             self.capture_s = time.perf_counter() - t0   # host seconds
 
     def _load(self, inputs: PairInputs, draws: Draws) -> None:
@@ -463,26 +487,76 @@ class _GraphProgram:
             if dst is not None:
                 dst.copy_(src)
 
-    def _result(self, front: Front, inter: dict, pose, num_inliers):
-        result = _clone(RegistrationResult(
+    def _outputs(self, front: Front, inter: dict, pose, num_inliers):
+        result = RegistrationResult(
             pose=pose, num_mutual=front.num_mutual, num_inliers=num_inliers,
-            kpts=front.kpts, kpt_valid=front.kpt_valid))
-        return (result, _clone(inter)) if self.return_intermediates else result
+            kpts=front.kpts, kpt_valid=front.kpt_valid)
+        return (result, inter) if self.return_intermediates else result
 
-    def __call__(self, inputs: PairInputs, draws: Draws):
+    def replay_front(self, inputs: PairInputs, draws: Draws,
+                     caller: torch.cuda.Stream) -> None:
+        """Loads the pair and replays the front on the program's stream,
+        after the work queued on ``caller``."""
         if _state_ptrs(self.model) != self.state:
             raise RuntimeError(
                 "make_register_fn: the model's parameters or buffers are not "
                 "the tensors the graphs were captured with (load weights in "
                 "place, e.g. load_state_dict, or make a new fn)")
-        self._load(inputs, draws)
-        self.front_graph.replay()
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            self._load(inputs, draws)
+            self.front_graph.replay()
         cuda.add_launches(self.front_launches)
-        graph, (pose, num_inliers), launches = self.tails[
-            boost_taken(self.cfg, self.front.num_mutual)]
-        graph.replay()
+
+    def replay_tail(self, boost: bool):
+        """Replays the tail of the budget ``boost`` on the program's stream
+        (after its front); returns the program's outputs, which the caller
+        copies once it has joined the stream."""
+        graph, (pose, num_inliers), launches = self.tails[boost]
+        with torch.cuda.stream(self.stream):
+            graph.replay()
         cuda.add_launches(launches)
-        return self._result(self.front, self.inter, pose, num_inliers)
+        return self._outputs(self.front, self.inter, pose, num_inliers)
+
+    def __call__(self, inputs: PairInputs, draws: Draws):
+        caller = torch.cuda.current_stream(self.dev)
+        self.replay_front(inputs, draws, caller)
+        caller.wait_stream(self.stream)
+        out = self.replay_tail(boost_taken(self.cfg, self.front.num_mutual))
+        caller.wait_stream(self.stream)
+        return _clone(out)
+
+
+class _UnrolledProgram:
+    """U pairs' :class:`_GraphProgram` chains, one a pair, each with its own
+    stream and memory pool.  A call forks every chain from the caller's
+    stream and replays the U fronts side by side, joins them, reads the U
+    mutual counts in one copy to the host (the counterpart of the U
+    ``lax.cond`` of one JAX program), replays each chain's taken tail on
+    its stream (a group may take both tails), joins again and stacks the
+    outputs on the caller's stream.  ``capture_s``: the chains' capture
+    seconds, summed."""
+
+    def __init__(self, model: BufferModel, dev: torch.device,
+                 return_intermediates: bool, inputs_list, draws_list):
+        self.cfg, self.dev = model.cfg, dev
+        self.chains = [_GraphProgram(model, dev, return_intermediates, i, d)
+                       for i, d in zip(inputs_list, draws_list)]
+        self.first = _stack([c.first for c in self.chains])
+        self.capture_s = sum(c.capture_s for c in self.chains)
+
+    def __call__(self, inputs_list, draws_list):
+        caller = torch.cuda.current_stream(self.dev)
+        for chain, inputs, draws in zip(self.chains, inputs_list, draws_list):
+            chain.replay_front(inputs, draws, caller)
+        for chain in self.chains:
+            caller.wait_stream(chain.stream)
+        counts = torch.stack([c.front.num_mutual for c in self.chains]).tolist()
+        outs = [chain.replay_tail(boost_taken(self.cfg, n))
+                for chain, n in zip(self.chains, counts)]
+        for chain in self.chains:
+            caller.wait_stream(chain.stream)
+        return _stack(outs)
 
 
 def make_register_fn(model: BufferModel, device=None,
@@ -517,6 +591,55 @@ def make_register_fn(model: BufferModel, device=None,
             programs[key] = program
             return program.first
         return programs[key](inputs, draws)
+
+    fn.programs = programs
+    return fn
+
+
+def make_unrolled_register_fn(model: BufferModel, unroll: int, device=None,
+                              return_intermediates: bool = False):
+    """U independent pairs in one program (counterpart of
+    ``buffer_tpu/pipeline/registration.py:313``'s
+    ``make_unrolled_register_fn``): returns ``fn(inputs_list, draws_list)``,
+    both lists of length ``unroll``, which returns a
+    :class:`RegistrationResult` with a leading U axis (with
+    ``return_intermediates``, also the intermediates dicts stacked so).
+    Pair u's result is :func:`make_register_fn`'s on ``inputs_list[u]``
+    and ``draws_list[u]``, bit for bit.
+
+    The U chains share no data, so each pair's serial tails (the FPS
+    chain, the top-k steps, the IRLS rounds, the per-row gathers) can run
+    under the other pairs' heavy work.  On the card (the default) each pair
+    is a program of CUDA graphs with its own stream and memory pool,
+    captured on the first call of each input signature after an eager
+    warm-up whose results that call returns; a later call replays the U
+    fronts side by side, reads the U mutual counts to the host in one copy,
+    replays each pair's taken tail on its stream and stacks the outputs.
+    A capture or launch that fails raises; nothing falls back to one chain
+    or to eager.  On the CPU ``fn`` runs :func:`register_pair` U times."""
+    if unroll < 1:
+        raise ValueError(f"unroll must be at least 1, not {unroll}")
+    dev = resolve_device(device)
+    programs = {}
+
+    def fn(inputs_list, draws_list):
+        if len(inputs_list) != unroll or len(draws_list) != unroll:
+            raise ValueError(f"make_unrolled_register_fn: {len(inputs_list)} "
+                             f"inputs and {len(draws_list)} draws for "
+                             f"{unroll} pairs")
+        if dev.type != "cuda":
+            return _stack([register_pair(
+                model, inputs, draws, device=dev,
+                return_intermediates=return_intermediates)
+                for inputs, draws in zip(inputs_list, draws_list)])
+        _check_model(model, dev)
+        key = tuple(_signature(i, d) for i, d in zip(inputs_list, draws_list))
+        if key not in programs:
+            program = _UnrolledProgram(model, dev, return_intermediates,
+                                       inputs_list, draws_list)
+            programs[key] = program
+            return program.first
+        return programs[key](inputs_list, draws_list)
 
     fn.programs = programs
     return fn

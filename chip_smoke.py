@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives twenty-two paths, each with every kernel launch counter set to 0
+2. Drives twenty-three paths, each with every kernel launch counter set to 0
    just before it and read just after (in each rank's own process for the
    data-parallel ones); every kernel of a path must have run on every pair
    (or step) of it, as often as the path's table says:
@@ -39,17 +39,29 @@
      (``low_match_th`` above any count), the base tail, ``fused_desc =
      False`` and device levels, each replay bit-equal to its eager pair;
      weights loaded in place replay, a replaced parameter raises;
+   * "unrolled": the unrolled program (``pipeline.registration.
+     make_unrolled_register_fn``, U pairs' graph chains on streams of their
+     own) on the main path's 3 pairs at U = 1, 2 and 3 and the KITTI
+     path's 2 at U = 1 and 2, groups padded as ``run_eval`` pads, two
+     passes each: every pair of every call bit-equal to ``register_pair``
+     (so to ``make_register_fn``), every call launching U times the path's
+     table with one host synchronization (replays), a stream and a memory
+     pool a chain; then the 3 pairs at U = 3 with ``low_match_th`` between
+     their mutual counts (one group, both tails).  Prints ms/pair (host
+     clock, 6 calls), device ms a call (CUDA events) against U times U =
+     1's, capture seconds and memory at each U;
    * "bench": the benchmark entry point (``buffer_tpu_torch.bench.main``)
-     on 3DMatch and KITTI at full size (``bench_path``): bench.py's pairs,
-     seeded random weights, the program's first call then 3 runs of 2 and
-     of 12 calls differenced, and one run of 12 between CUDA events.  Its
-     one JSON line is printed; its last timed call's result (pose, mutual
-     count, every field) bit-equal to ``register_pair`` on the bench's pair
-     rebuilt here with the last iteration's draws; a timed replay launching
-     the preset's table (every call of the run too); ``value`` finite and
-     above 0 and ``1000 / value`` equal to ``ms_per_pair`` to their
-     rounding; its ms/pair printed beside the program line's (other pairs:
-     not gated);
+     on 3DMatch and KITTI at full size (``bench_path``): bench.py's pairs
+     and pairs a call (3DMatch 3 unrolled, KITTI 1), seeded random
+     weights, the program's first call then 3 runs of 2 and of 12 calls
+     differenced, and one run of 12 between CUDA events.  Its one JSON
+     line is printed; each pair of its last timed call (pose, mutual
+     count, every field) bit-equal to ``register_pair`` on the bench's
+     pair rebuilt here with that pair's draws; a timed replay launching
+     the preset's table a pair (every call of the run too); ``value``
+     finite and above 0 and ``1000 / value`` equal to ``ms_per_pair`` to
+     their rounding; its ms/pair printed beside the program line's (other
+     pairs: not gated);
    * "profiles": the measurement entry points through their ``main(argv)``
      at full width (``profiles_path``): ``scripts.profile_stages`` on
      3DMatch and KITTI (each stage's rows, chained, bit-equal to
@@ -97,10 +109,14 @@
      by ICP).  Each tree runs with seeded random weights written as a
      reference snapshot (``--torch-weights``), and the 3DMatch tree also
      with the checkpoints of "3DMatch train" (``--weights``); the harness
-     registers through its ``make_register_fn`` program.  Every pair
-     must launch the path's kernels (counts read around each call); the
-     loaded model must equal the files; every pair's result (the first the
-     program's warm-up, the others replays) must equal ``register_pair``
+     registers the 3DMatch tree's 3 pairs as one group of its
+     ``pair_unroll = 3`` and KITTI's one at a time, through its
+     ``make_unrolled_register_fn`` program.  Every pair must be in a group
+     of the preset's size and launch the path's kernels (counts read
+     around each call, a group's over its pairs); the
+     loaded model must equal the files; every pair's result (the first
+     group the program's warm-up, the others replays) must equal
+     ``register_pair``
      on the same inputs and draws bit for bit;
      ``est.log`` must read back as the inverse poses (1e-6); recall, TE,
      RE and pairs must match the per-pair records, the registration recall
@@ -322,10 +338,15 @@ GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
            "spt_pooled": ("spt_kernel",)}
 PROGRAM_TIMED = 6
-# torch.profiler still loses the first kernels of a profiled call now and
-# then, after utils.profiling.settle() too (a train-program replay showed
-# 3 of the 4 banded-kNN launches its counter saw): a profile that shows
-# fewer kernels than the counters is taken again, up to this many times
+# the unrolled program (make_unrolled_register_fn): the pairs a call of
+# each preset's runs, U = 1 first (the others are read beside it)
+UNROLL = {"3DMatch": (1, 2, 3), "KITTI": (1, 2)}
+# torch.profiler lost the first kernels of a profiled call now and then,
+# after utils.profiling.settle() too (a train-program replay showed 3 of
+# the 4 banded-kNN launches its counter saw), and in some processes the
+# same first records of every window (hence utils.profiling.open_window's
+# spin kernels): a profile that shows fewer kernels than the counters is
+# taken again, up to this many times
 PROFILE_ATTEMPTS = 3
 DISPATCH_APIS = (r"(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|"
                  r"cuLaunchKernelEx|cudaGraphLaunch|cudaMemcpyAsync|"
@@ -1175,40 +1196,78 @@ def write_kitti_tree(root: str, seed: int, seq: int = 8,
 @contextlib.contextmanager
 def recorded_programs(mod, calls: list):
     """Within the block every registration program that
-    ``mod.make_register_fn`` makes records each of its calls in ``calls``:
-    the model, inputs, draws, the ``RegistrationResult``, the milliseconds
-    (host clock up to a synchronize) and the launches it made."""
+    ``mod.make_register_fn`` or ``mod.make_unrolled_register_fn`` makes
+    records each pair of its calls in ``calls``: the model, inputs, draws,
+    the ``RegistrationResult``, the milliseconds (host clock up to a
+    synchronize), the launches it made, and the group (``U``, ``slot``).
+    An unrolled call is recorded a pair a slot, with the call's ms and
+    launches over U (a group launches U times one pair's table: a rise
+    that U does not divide raises); a padded slot (the slot before's very
+    inputs, as ``run_eval`` pads) is left out."""
     import torch
     from buffer_tpu_torch import resolve_device
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline.registration import RegistrationResult
+
+    def timed(fn, dev, args):
+        before = cuda.launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        after = cuda.launch_counts()
+        res = out if isinstance(out, RegistrationResult) else out[0]
+        return out, res, ms, {k: after[k] - before[k] for k in after}
+
     make = mod.make_register_fn
+    make_unrolled = getattr(mod, "make_unrolled_register_fn", None)
 
     def recording(model, device=None, **kw):
         fn = make(model, device=device, **kw)
         dev = resolve_device(device)
 
         def recorded(inputs, draws):
-            before = cuda.launch_counts()
-            t0 = time.perf_counter()
-            out = fn(inputs, draws)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            ms = 1e3 * (time.perf_counter() - t0)
-            after = cuda.launch_counts()
-            res = out if isinstance(out, RegistrationResult) else out[0]
+            out, res, ms, rose = timed(fn, dev, (inputs, draws))
             calls.append({"model": model, "inputs": inputs, "draws": draws,
-                          "result": res, "ms": ms,
-                          "launches": {k: after[k] - before[k] for k in after}})
+                          "result": res, "ms": ms, "launches": rose,
+                          "U": 1, "slot": 0})
+            return out
+
+        return recorded
+
+    def recording_unrolled(model, unroll, device=None, **kw):
+        fn = make_unrolled(model, unroll, device=device, **kw)
+        dev = resolve_device(device)
+
+        def recorded(inputs_list, draws_list):
+            out, res, ms, rose = timed(fn, dev, (inputs_list, draws_list))
+            if any(v % unroll for v in rose.values()):
+                raise RuntimeError(f"an unrolled call of {unroll} pairs "
+                                   f"launched {rose}")
+            for u, (inputs, draws) in enumerate(zip(inputs_list, draws_list)):
+                if u and inputs is inputs_list[u - 1]:
+                    continue
+                calls.append({"model": model, "inputs": inputs,
+                              "draws": draws, "result": RegistrationResult(
+                                  *(t[u] for t in res)),
+                              "ms": ms / unroll,
+                              "launches": {k: v // unroll
+                                           for k, v in rose.items()},
+                              "U": unroll, "slot": u})
             return out
 
         return recorded
 
     mod.make_register_fn = recording
+    if make_unrolled is not None:
+        mod.make_unrolled_register_fn = recording_unrolled
     try:
         yield
     finally:
         mod.make_register_fn = make
+        if make_unrolled is not None:
+            mod.make_unrolled_register_fn = make_unrolled
 
 
 def run_entry(argv, plain: bool = False):
@@ -1248,6 +1307,11 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
                            f"registrations, expected {n}")
     for c in calls:
         check_launches(preset, c["launches"])
+    # run_eval groups the pairs by the preset's pair_unroll (one pair: 1)
+    U = make_cfg(preset).static.pair_unroll if n > 1 else 1
+    if [c["U"] for c in calls] != [U] * n:
+        raise RuntimeError(f"{name}: groups {[c['U'] for c in calls]}, "
+                           f"expected {U} a pair")
     state = calls[0]["model"].state_dict()
     for k, v in want_state.items():
         if not k.endswith("num_batches_tracked") or flag == "--weights":
@@ -1296,6 +1360,7 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
             "launches_per_pair": {k: v for k, v in calls[0]["launches"].items()
                                   if v},
             "register_ms": [c["ms"] for c in calls],
+            "pair_unroll": [c["U"] for c in calls],
             "eligible_keypoints": n_kpts,
             "launches": counts, "rte_rre": [s[1:] for s in states],
             "num_mutual": [int(c["result"].num_mutual) for c in calls],
@@ -1674,26 +1739,34 @@ def results_equal(got, want) -> bool:
 
 
 def profile_call(fn):
-    """One call of ``fn`` under ``torch.profiler``, started and ended
-    ``utils.profiling.settle`` after the card is idle (the profiler drops
-    records it dates outside its window): (its output, kernel count by
-    __global__ name of GLOBALS, all kernels launched, host dispatches, the
-    kernels' device ms)."""
+    """One call of ``fn`` under ``torch.profiler``, its window opened by
+    ``utils.profiling.open_window`` (spin kernels that take the records
+    the profiler loses first, then ``settle``) and closed ``settle`` after
+    the card is idle (the profiler drops records it dates outside its
+    window): (its output, kernel count by __global__ name of GLOBALS, all
+    kernels launched, host dispatches within the call, the kernels' device
+    ms)."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from buffer_tpu_torch.utils.profiling import kernel_events, settle
+    from buffer_tpu_torch.utils.profiling import (kernel_events, open_window,
+                                                  settle)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        settle()
-        out = fn()
+        open_window()
+        with torch.profiler.record_function("profiled call"):
+            out = fn()
         settle()
     kernels = kernel_events(prof)
     names = sorted({n for ns in GLOBALS.values() for n in ns})
     seen = {n: sum(1 for e in kernels if re.search(rf"\b{n}\b", e.name))
             for n in names}
+    call = next(e for e in prof.events() if e.name == "profiled call"
+                and e.device_type == torch.autograd.DeviceType.CPU)
     dispatches = sum(1 for e in prof.events()
-                     if re.fullmatch(DISPATCH_APIS, e.name))
+                     if re.fullmatch(DISPATCH_APIS, e.name)
+                     and call.time_range.start <= e.time_range.start
+                     <= call.time_range.end)
     return (out, seen, len(kernels), dispatches,
             sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
 
@@ -1885,6 +1958,219 @@ def program_variants(dev, cfg, pairs, draws, smodel, sampled_eager) -> dict:
     return out
 
 
+def sync_count(fn):
+    """``fn()`` and the host synchronizations it made (CUDA's sync debug
+    mode warns on each)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def unstacked(res, u):
+    """Pair ``u`` of a result with a leading U axis."""
+    return type(res)(*(t[u] for t in res))
+
+
+def overlap_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (window as
+    ``profile_call``'s): its kernels' summed device ms, the ms the card had
+    at least one of them running (the union of their intervals), the span
+    from the first kernel's start to the last one's end, and their ratios
+    (kernels side by side; the card's idle share within the span)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from buffer_tpu_torch.utils.profiling import (kernel_events, open_window,
+                                                  settle)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_window()
+        fn()
+        settle()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in kernel_events(prof))
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    summed = sum(b - a for a, b in spans)
+    span = max(b for _, b in spans) - spans[0][0]
+    return {"kernels": len(spans), "kernel_ms_summed": summed / 1e3,
+            "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "side_by_side": summed / busy, "idle_share": 1 - busy / span}
+
+
+def unrolled_run(path: str, dev, model, pairs, draws, eager, U: int,
+                 table: dict) -> dict:
+    """``make_unrolled_register_fn(model, U)`` over ``pairs`` in groups of U
+    (the last padded with its last pair, as ``run_eval`` pads), every count
+    set to 0 just before and read just after: two passes (the first warms
+    and captures, the second replays), every call launching U times the
+    table, every pair bit-equal to ``eager`` (``register_pair``'s results,
+    which ``program_path`` holds ``make_register_fn``'s to), every result
+    holding its values after the calls that follow it, one host
+    synchronization a replayed call, a stream and a memory pool a chain.
+    Then PROGRAM_TIMED calls over the groups in turn (host clock around
+    each synchronized call), one call a group between CUDA events, and the
+    first group's call under ``torch.profiler`` (``overlap_profile``).
+    Memory, above what was allocated (reserved) before the program, with
+    the graphs of the runs before it freed: the peak allocated (the warm-up included), what
+    the program holds allocated after its calls, and the reserved rise
+    (its graphs' pools)."""
+    import gc
+    import torch
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.pipeline import registration
+    n = len(pairs)
+    groups = [list(range(k, min(k + U, n))) for k in range(0, n, U)]
+    groups = [g + [g[-1]] * (U - len(g)) for g in groups]
+    want_call = {k: U * v for k, v in table.items()}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    fn = registration.make_unrolled_register_fn(model, U, device=dev)
+    cuda.reset_launches()
+    kept, syncs, first_ms = [], [], None
+    for n_pass in range(2):
+        for g in groups:
+            before = cuda.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call = lambda: fn([pairs[i] for i in g], [draws[i] for i in g])
+            res, synced = sync_count(call)
+            torch.cuda.synchronize()
+            if first_ms is None:
+                first_ms = 1e3 * (time.perf_counter() - t0)
+            after = cuda.launch_counts()
+            check_launches(path, {k: after[k] - before[k] for k in after},
+                           want_call)
+            if n_pass:
+                syncs.append(synced)
+            for u, i in enumerate(g):
+                if not results_equal(unstacked(res, u), eager[i]):
+                    raise RuntimeError(f"{path}: pass {n_pass} pair {i} "
+                                       f"(slot {u}) differs from "
+                                       "register_pair")
+            kept.append((res, g))
+    if syncs != [1] * len(groups):
+        raise RuntimeError(f"{path}: host synchronizations a replayed call "
+                           f"{syncs}, expected 1")
+    counts = cuda.launch_counts()
+    if counts != {k: 2 * len(groups) * want_call.get(k, 0) for k in counts}:
+        raise RuntimeError(f"{path}: launches {counts} over "
+                           f"{2 * len(groups)} calls")
+    for res, g in kept:
+        if not all(results_equal(unstacked(res, u), eager[i])
+                   for u, i in enumerate(g)):
+            raise RuntimeError(f"{path}: a result changed in a later call")
+    (program,) = fn.programs.values()
+    chains = program.chains
+    if (len({c.stream.cuda_stream for c in chains}) != U
+            or len({c.pool for c in chains}) != U):
+        raise RuntimeError(f"{path}: chains share a stream or a pool")
+    args = [([pairs[i] for i in g], [draws[i] for i in g]) for g in groups]
+    ms, device_ms = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for k in range(PROGRAM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args[k % len(args)])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    for a in args:
+        torch.cuda.synchronize()
+        start.record()
+        fn(*a)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    overlap = overlap_profile(lambda: fn(*args[0]))
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    reserved = torch.cuda.memory_reserved() - base_reserved
+    tails = [sorted({registration.boost_taken(model.cfg, int(r.num_mutual[u]))
+                     for u in range(U)}) for r, _ in kept]
+    line = {"path": path, "U": U, "pairs": n, "groups": groups,
+            "calls": 2 * len(groups), "bit_equal_to_eager": True,
+            "first_call_ms": first_ms, "capture_s": program.capture_s,
+            "ms_per_pair": sum(ms) / len(ms) / U, "per_call_ms": ms,
+            "device_ms_per_call": sum(device_ms) / len(device_ms),
+            "device_ms_by_group": device_ms,
+            "host_syncs_per_call": 1, "peak_bytes": peak,
+            "held_bytes": held, "reserved_bytes": reserved,
+            "tails_per_call": tails, "profiled_call": overlap,
+            "launches": counts}
+    del fn, program, chains, kept
+    return line
+
+
+def unrolled_path(dev, cfg, kcfg, model, kmodel, pairs, kpairs, draws,
+                  kdraws, eager, keager) -> dict:
+    """The unrolled program (``make_unrolled_register_fn``) at full width:
+    3DMatch's 3 pairs at U = 1, 2 and 3, KITTI's 2 at U = 1 and 2 (each
+    ``unrolled_run``), then 3DMatch at U = 3 with ``low_match_th`` between
+    the pairs' mutual counts, so that one group takes both tails.  Prints a
+    line a run and, for each preset, ms/pair and device ms a call at each
+    U beside U = 1's (device ms a call against U times U = 1's)."""
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.pipeline import registration
+    runs = []
+    for name, c, m, ps, ds, want, Us in (
+            ("3DMatch", cfg, model, pairs, draws, eager, UNROLL["3DMatch"]),
+            ("KITTI", kcfg, kmodel, kpairs, kdraws, keager, UNROLL["KITTI"])):
+        lines = []
+        for U in Us:
+            line = unrolled_run(f"{name} unrolled U={U}", dev, m, ps, ds,
+                                want, U, PER_PAIR[name])
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+        one = lines[0]
+        print(json.dumps({"unrolled": name, "by_U": [
+            {"U": ln["U"], "ms_per_pair": ln["ms_per_pair"],
+             "device_ms_per_call": ln["device_ms_per_call"],
+             "U_times_U1_device_ms": ln["U"] * one["device_ms_per_call"],
+             "capture_s": ln["capture_s"], "peak_bytes": ln["peak_bytes"],
+             "reserved_bytes": ln["reserved_bytes"],
+             "side_by_side": ln["profiled_call"]["side_by_side"],
+             "idle_share": ln["profiled_call"]["idle_share"]}
+            for ln in lines]}), flush=True)
+        runs.extend(lines)
+
+    # a group that takes both tails: low_match_th at the largest count
+    counts = [int(r.num_mutual) for r in eager]
+    if min(counts) == max(counts):
+        raise RuntimeError(f"unrolled mixed tails: equal counts {counts}")
+    mcfg = cfg.replace(static=dataclasses.replace(cfg.static,
+                                                  low_match_th=max(counts)))
+    mmodel = BufferModel(mcfg, seed=0).to(dev).eval()
+    mwant = [registration.register_pair(mmodel, p, d, device=dev)
+             for p, d in zip(pairs, draws)]
+    U = len(pairs)
+    line = unrolled_run(f"3DMatch unrolled U={U} mixed tails", dev, mmodel,
+                        pairs, draws, mwant, U, PER_PAIR["3DMatch"])
+    if line["tails_per_call"] != [[False, True]] * line["calls"]:
+        raise RuntimeError(f"unrolled mixed tails: {line['tails_per_call']}")
+    line["low_match_th"], line["num_mutual"] = max(counts), counts
+    print(json.dumps(line), flush=True)
+    runs.append(line)
+    return {"runs": runs}
+
+
 def script_line(main, argv) -> dict:
     """An entry point's ``main(argv)`` with its standard output kept: a
     return other than 0 raises; returns its last line as JSON."""
@@ -1910,16 +2196,18 @@ def rounding_agrees(value: float, ms: float) -> bool:
 def bench_path(dev, programs) -> dict:
     """The benchmark entry point at full size, 3DMatch then KITTI, every
     count set to 0 just before each run and read just after: its one JSON
-    line; the last timed call's result bit-equal to ``register_pair`` on
-    the bench's pair and the last iteration's draws, both rebuilt here;
-    one timed replay (and every call: the first call's warm-up included)
-    launching the preset's table; ``value`` finite and above 0, and
-    ``1000 / value`` equal to ``ms_per_pair`` to rounding.  Prints the line
-    and its ms/pair beside the program line's of the same preset (other
-    pairs, so not gated)."""
+    line, with bench.py's pairs a call (3DMatch 3 unrolled, KITTI 1); each
+    pair of the last timed call bit-equal to ``register_pair`` on the
+    bench's pair and its draws, both rebuilt here; one timed replay (and
+    every call: the first call's warm-up included) launching a pair's table
+    a pair; ``value`` finite and above 0, and ``1000 / value`` equal to
+    ``ms_per_pair`` to rounding.  Prints the line and its ms/pair beside
+    the program line's of the same preset (other pairs, one a call: not
+    gated)."""
     import io
     import torch
     from buffer_tpu_torch import bench
+    from buffer_tpu_torch.config import make_cfg
     from buffer_tpu_torch.data.synthetic import bench_pair, lidar_pair
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline import registration
@@ -1927,29 +2215,29 @@ def bench_path(dev, programs) -> dict:
                   for p in programs}
     out = {}
     for config in ("3DMatch", "KITTI"):
-        # keep the last call's result only: recorded_programs would
+        # keep the last call's results only: recorded_programs would
         # synchronize inside the timed runs
         last = []
-        make = registration.make_register_fn
+        make = registration.make_unrolled_register_fn
 
-        def keeping(model, device=None, **kw):
-            fn = make(model, device=device, **kw)
+        def keeping(model, unroll, device=None, **kw):
+            fn = make(model, unroll, device=device, **kw)
 
-            def kept(inputs, draws):
-                res = fn(inputs, draws)
-                last[:] = [model, inputs, draws, res]
+            def kept(inputs_list, draws_list):
+                res = fn(inputs_list, draws_list)
+                last[:] = [model, inputs_list, draws_list, res]
                 return res
             kept.programs = getattr(fn, "programs", None)
             return kept
 
         buf = io.StringIO()
         cuda.reset_launches()
-        registration.make_register_fn = keeping
+        registration.make_unrolled_register_fn = keeping
         try:
             with contextlib.redirect_stdout(buf):
                 rc = bench.main(["--config", config])
         finally:
-            registration.make_register_fn = make
+            registration.make_unrolled_register_fn = make
         counts = cuda.launch_counts()
         lines = buf.getvalue().strip().splitlines()
         if rc != 0 or len(lines) != 1:
@@ -1963,33 +2251,50 @@ def bench_path(dev, programs) -> dict:
                 and rounding_agrees(value, ex["ms_per_pair"])):
             raise RuntimeError(f"bench {config}: value {value} pairs/s against "
                                f"{ex['ms_per_pair']} ms/pair")
+        static = make_cfg(config).static
+        PU = ex["pair_batch"] * ex["pair_unroll"]
+        if (ex["pair_batch"], ex["pair_unroll"]) != (static.pair_batch,
+                                                     static.pair_unroll):
+            raise RuntimeError(f"bench {config}: {ex['pair_batch']} x "
+                               f"{ex['pair_unroll']} pairs a call, not the "
+                               "preset's")
         table = PER_PAIR[config]
         if ex["launches_per_pair"] != table:
             raise RuntimeError(f"bench {config}: a timed replay launched "
-                               f"{ex['launches_per_pair']}, expected {table}")
-        check_launches(f"{config} bench", {k: v / ex["calls"]
+                               f"{ex['launches_per_pair']} a pair, expected "
+                               f"{table}")
+        check_launches(f"{config} bench", {k: v / (ex["calls"] * PU)
                                            for k, v in counts.items()}, table)
         if (ex["platform"], ex["weights"], ex["config"]) != ("gpu", "random",
                                                              config):
             raise RuntimeError(f"bench {config}: {ex}")
-        model, inputs, draws, res = last
+        model, inputs_list, draws_list, res = last
         cfg = model.cfg
         pair, T = (lidar_pair(cfg, 13, dev) if config == "KITTI"
                    else bench_pair(cfg, dev))
         gen = torch.Generator(device=dev).manual_seed(0)
         want_draws = [registration.make_draws(cfg, gen, dev)
-                      for _ in range(ex["timed_pairs"])][-1]
-        for name, a, b in zip((*pair._fields, *draws._fields),
-                              (*inputs, *draws), (*pair, *want_draws)):
-            if not (a is None and b is None or torch.equal(a, b)):
-                raise RuntimeError(f"bench {config}: the timed call's {name} "
-                                   "is not the bench pair's / last draws'")
-        want = registration.register_pair(model, pair, want_draws, device=dev)
-        if not (results_equal(res, want)
-                and int(res.num_mutual) == ex["mutual_matches"]):
-            raise RuntimeError(f"bench {config}: the last timed call differs "
-                               "from register_pair")
+                      for _ in range(ex["timed_pairs"])][-PU:]
+        if len(inputs_list) != PU or res.pose.shape[0] != PU:
+            raise RuntimeError(f"bench {config}: the last call holds "
+                               f"{len(inputs_list)} pairs, not {PU}")
+        for u, (inputs, draws, wd) in enumerate(zip(inputs_list, draws_list,
+                                                    want_draws)):
+            for name, a, b in zip((*pair._fields, *draws._fields),
+                                  (*inputs, *draws), (*pair, *wd)):
+                if not (a is None and b is None or torch.equal(a, b)):
+                    raise RuntimeError(
+                        f"bench {config}: the timed call's pair {u} {name} "
+                        "is not the bench pair's / its draws'")
+            want = registration.register_pair(model, pair, wd, device=dev)
+            if not results_equal(unstacked(res, u), want):
+                raise RuntimeError(f"bench {config}: pair {u} of the last "
+                                   "timed call differs from register_pair")
+        if int(res.num_mutual[0]) != ex["mutual_matches"]:
+            raise RuntimeError(f"bench {config}: the line's mutual count is "
+                               "not the last call's first pair's")
         side = {"bench": config, "ms_per_pair": ex["ms_per_pair"],
+                "pair_unroll": ex["pair_unroll"],
                 "device_ms_per_pair": ex["device_ms_per_pair"],
                 "program_line_ms_per_pair": program_ms[config],
                 "pairs": "the bench's pair against chip_smoke's own"}
@@ -2473,6 +2778,11 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
                                 sampled_results[0])
     lap("3DMatch program and KITTI program")
 
+    # ---- several pairs in one program (make_unrolled_register_fn) -------
+    unrolled = unrolled_path(dev, cfg, kcfg, model, kmodel, pairs, kpairs,
+                             draws, kdraws, main_results, kitti_results)
+    lap("unrolled")
+
     # ---- the benchmark entry point, 3DMatch and KITTI --------------------
     bench = bench_path(dev, programs)
     lap("bench")
@@ -2864,6 +3174,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
             "paths": [main_line, kitti_line, band0_line, sampled_line],
             "programs": programs, "program_variants": variants,
+            "unrolled": unrolled,
             "bench": bench,
             "profiles": profiles,
             "device_levels": levels, "train_entry": train_entry,

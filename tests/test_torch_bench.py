@@ -2,14 +2,16 @@
 CPU: its pair against the repository's ``bench.synthetic_pair`` array for
 array, its rotation against the JAX draw, its static-plan overrides against
 ``bench.py``'s, the differenced timing on a fake clock, the JSON line of
-``main`` at the tiny plan with its pose bit-equal to ``register_pair`` on
-the same pair and draws, the measured call's pose against JAX's
+``main`` at the tiny plan with each pair of its last call bit-equal to
+``register_pair`` on the same pair and draws, ``--batch`` and ``--unroll``
+with bench.py's defaults, the measured call's pose against JAX's
 ``register_pair`` on ``bench.py``'s tiny pair (the tolerances of
 ``test_torch_registration.py``), and no fallback to the CPU."""
 
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -140,37 +142,70 @@ def test_differenced_ms_fake_clock(noise):
 
 
 def _recorded(monkeypatch):
-    """Every result of every program ``make_register_fn`` makes, in call
-    order, with its draws."""
+    """Every call of every program ``make_unrolled_register_fn`` makes, in
+    call order: (model, inputs list, draws list, stacked results)."""
     calls = []
-    make = registration.make_register_fn
+    make = registration.make_unrolled_register_fn
 
-    def recording(model, device=None, **kw):
-        fn = make(model, device=device, **kw)
+    def recording(model, unroll, device=None, **kw):
+        fn = make(model, unroll, device=device, **kw)
 
-        def recorded(inputs, draws):
-            out = fn(inputs, draws)
-            calls.append((model, inputs, draws, out))
+        def recorded(inputs_list, draws_list):
+            out = fn(inputs_list, draws_list)
+            calls.append((model, inputs_list, draws_list, out))
             return out
         return recorded
 
-    monkeypatch.setattr(registration, "make_register_fn", recording)
+    monkeypatch.setattr(registration, "make_unrolled_register_fn", recording)
     return calls
+
+
+def _line(capsys):
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert set(line) == LINE_KEYS and EXTRA_KEYS <= set(line["extra"])
+    return line
+
+
+def _last_call_held(calls, cfg, config, PU, n_calls, ex):
+    """The last call's P x U pairs: the bench's pair in every slot, the last
+    P x U of the seeded draws, each result bit-equal to ``register_pair``;
+    the line's sanity and mutual count are its first pair's."""
+    gen = torch.Generator().manual_seed(0)
+    draws = [registration.make_draws(cfg, gen, "cpu")
+             for _ in range(n_calls * PU)]
+    inputs, T = (lidar_pair(cfg, 13, "cpu") if config == "KITTI"
+                 else bench_pair(cfg, "cpu"))
+    model, inputs_list, draws_list, got = calls[-1]
+    assert len(inputs_list) == len(draws_list) == PU
+    assert got.pose.shape == (PU, 4, 4)
+    ref = BufferModel(cfg, seed=0).eval()
+    for u, (inp, dr, d_want) in enumerate(zip(inputs_list, draws_list,
+                                              draws[-PU:])):
+        for a, b in zip((*inp, *dr), (*inputs, *d_want)):
+            assert (a is None and b is None) or torch.equal(a, b)
+        want = registration.register_pair(ref, inputs, d_want, device="cpu")
+        for name, a, b in zip(want._fields, (t[u] for t in got), want):
+            assert torch.equal(a, b), (u, name)
+    first = registration.register_pair(ref, inputs, draws[-PU], device="cpu")
+    assert int(first.num_mutual) == ex["mutual_matches"]
+    rte, rre = bench.sanity(first.pose.numpy(), T)
+    assert (ex["sanity_rte_m"], ex["sanity_rre_deg"]) == (round(rte, 4),
+                                                          round(rre, 3))
 
 
 @pytest.mark.parametrize("config", ["3DMatch", "KITTI"])
 def test_main_line_and_last_pose(monkeypatch, capsys, config):
     """``main`` at the tiny plan on the CPU prints one JSON line with
-    bench.py's keys and the port's; its last timed pair's pose and mutual
-    count are bit-equal to ``register_pair`` on the bench's pair with the
-    last iteration's draws and the seeded weights."""
+    bench.py's keys and the port's; its default pairs a call are bench.py's
+    (the tiny plan's ``pair_unroll = 3``, batch 1, whatever the config);
+    each pair of its last timed call is bit-equal to ``register_pair`` on
+    the bench's pair with that pair's draws and the seeded weights."""
     calls = _recorded(monkeypatch)
     assert bench.main(["--size", "small", "--device", "cpu", "--iters", "2",
                        "--config", config]) == 0
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1
-    line = json.loads(lines[0])
-    assert set(line) == LINE_KEYS and EXTRA_KEYS <= set(line["extra"])
+    line = _line(capsys)
     ex = line["extra"]
     assert line["metric"] == ("kitti_pairs_per_sec_single_chip"
                               if config == "KITTI"
@@ -183,29 +218,68 @@ def test_main_line_and_last_pose(monkeypatch, capsys, config):
         0.005 + 1e3 * 0.0005 / (value * (value - 0.0005)) + 1e-9)
     assert (ex["platform"], ex["size"], ex["config"], ex["weights"]) == (
         "cpu", "small", config, "random")
-    assert ex["pair_batch"] == ex["pair_unroll"] == 1
+    assert (ex["pair_batch"], ex["pair_unroll"]) == (1, 3)
     for k in ("build_s", "device_ms_per_pair", "card", "capture_s",
               "launches_per_pair"):
         assert ex[k] is None, k
-    # the first call, 3 runs of 2 and 3 runs of 4 calls
+    # the first call, 3 runs of 2 and 3 runs of 4 calls, 3 pairs a call
     assert ex["calls"] == len(calls) == 1 + 3 * 2 + 3 * 4
-    assert ex["timed_pairs"] == 4 and ex["boost_pairs"] == 0
+    assert ex["timed_pairs"] == 4 * 3 and ex["boost_pairs"] == 0
+    _last_call_held(calls, tconfig.tiny_cfg(), config, 3, 4, ex)
 
+
+@pytest.mark.parametrize("argv,P,U", [
+    ([], 1, 3), (["--config", "KITTI"], 1, 1), (["--size", "small"], 1, 3),
+    (["--size", "small", "--config", "KITTI"], 1, 3),
+    (["--unroll", "2"], 1, 2), (["--config", "KITTI", "--unroll", "2"], 1, 2),
+    (["--batch", "2"], 2, 1), (["--batch", "2", "--unroll", "3"], 2, 3)])
+def test_pairs_per_call_are_bench_py_defaults(argv, P, U):
+    """(P, U) of bench.py:141-143: P the flag or ``static.pair_batch``, U the
+    flag or, at P = 1, ``static.pair_unroll`` (3DMatch and the tiny plan 3,
+    KITTI 1), else 1; the presets' fields equal the JAX package's."""
+    args = bench.parser().parse_args(argv)
+    cfg = bench.bench_cfg(args)
+    jcfg = (jconfig.make_cfg(args.config) if args.size == "full"
+            else jconfig.tiny_cfg())
+    assert (cfg.static.pair_batch, cfg.static.pair_unroll) == (
+        jcfg.static.pair_batch, jcfg.static.pair_unroll)
+    assert bench.pairs_per_call(cfg, args) == (P, U)
+
+
+@pytest.mark.parametrize("flags,P,U", [(["--unroll", "2"], 1, 2),
+                                       (["--batch", "2"], 2, 1),
+                                       (["--unroll", "1", "--boost"], 1, 1),
+                                       (["--unroll", "2", "--boost"], 1, 2)])
+def test_main_batch_and_unroll_flags(monkeypatch, capsys, flags, P, U):
+    """``--unroll`` and ``--batch`` at the tiny plan on the CPU: P x U pairs a
+    call through one unrolled program, each pair with its own draws; the
+    line reports the P and U that ran, ``ms_per_pair`` a call's differenced
+    time over P x U (a fixed 600 ms a call here), ``timed_pairs`` and
+    ``boost_pairs`` in pairs (``--boost``, a test flag: every pair on the
+    low-match tail), and the last call's pairs each equal
+    ``register_pair``."""
+    boost = "--boost" in flags
+    flags = [f for f in flags if f != "--boost"]
     cfg = tconfig.tiny_cfg()
-    gen = torch.Generator().manual_seed(0)
-    draws = [registration.make_draws(cfg, gen, "cpu") for _ in range(4)]
-    inputs, T = (lidar_pair(cfg, 13, "cpu") if config == "KITTI"
-                 else bench_pair(cfg, "cpu"))
-    model, inp, dr, got = calls[-1]
-    for a, b in zip((*inp, *dr), (*inputs, *draws[-1])):
-        assert (a is None and b is None) or torch.equal(a, b)
-    want = registration.register_pair(BufferModel(cfg, seed=0).eval(), inputs,
-                                      draws[-1], device="cpu")
-    assert torch.equal(got.pose, want.pose)
-    assert int(got.num_mutual) == int(want.num_mutual) == ex["mutual_matches"]
-    rte, rre = bench.sanity(want.pose.numpy(), T)
-    assert (ex["sanity_rte_m"], ex["sanity_rre_deg"]) == (round(rte, 4),
-                                                          round(rre, 3))
+    if boost:
+        cfg = cfg.replace(static=dataclasses.replace(
+            cfg.static, low_match_boost=True, low_match_th=10 ** 6))
+        monkeypatch.setattr(bench, "bench_cfg", lambda args: cfg)
+    monkeypatch.setattr(bench, "REPS", 1)
+    monkeypatch.setattr(bench, "differenced_ms",
+                        lambda run, n_lo, n_hi, reps: (run(n_lo), run(n_hi),
+                                                       600.0)[-1])
+    calls = _recorded(monkeypatch)
+    assert bench.main(["--size", "small", "--device", "cpu", "--iters", "1",
+                       *flags]) == 0
+    ex = _line(capsys)["extra"]
+    assert (ex["pair_batch"], ex["pair_unroll"]) == (P, U)
+    assert ex["ms_per_pair"] == round(600.0 / (P * U), 2)
+    # the first call, a run of 2 and a run of 3 calls
+    assert ex["calls"] == len(calls) == 1 + 2 + 3
+    assert ex["timed_pairs"] == 3 * P * U
+    assert ex["boost_pairs"] == (3 * P * U if boost else 0)
+    _last_call_held(calls, cfg, "3DMatch", P * U, 3, ex)
 
 
 def test_measured_pose_matches_jax(monkeypatch):
@@ -276,8 +350,13 @@ def test_command_line_prints_one_json_line_without_jax():
             "sys.argv = ['bench', '--size', 'small', '--device', 'cpu', "
             "'--iters', '2']\n"
             "runpy.run_module('buffer_tpu_torch.bench', run_name='__main__')\n")
+    # one thread, as the suite's own processes: an OpenMP team sharing
+    # the cores with the other workers stalls unevenly, and the
+    # differenced time can come out negative
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                         capture_output=True, text=True, timeout=300).stdout
+                         capture_output=True, text=True, timeout=300,
+                         env=env).stdout
     lines = out.strip().splitlines()
     assert len(lines) == 1
     line = json.loads(lines[0])

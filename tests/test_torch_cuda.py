@@ -505,8 +505,10 @@ def test_test_entry_point_on_card(card, tmp_path):
                       "--log-dir", str(tmp_path / "log")])
     assert out["pairs"] == 2 and 0.0 <= out["registration_recall"] <= 1.0
     launches = {k: v for k, v in cuda.launch_counts().items() if v}
-    assert launches == {"nearest": 4, "fps": 2, "ball_sample": 2,
-                        "spt_pooled": 2}
+    # the tiny plan's pair_unroll = 3: one group of the 2 pairs and the
+    # second again (padding, its result discarded), 3 pairs' launches
+    assert launches == {"nearest": 6, "fps": 3, "ball_sample": 3,
+                        "spt_pooled": 3}
     _, traj = metrics.read_trajectory(str(tmp_path / "log" / scene / "est.log"))
     assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()
 
@@ -677,6 +679,74 @@ def test_program_equals_register_pair(card, plan, th):
         assert all(torch.equal(a, b) for a, b in zip(res, w))
     (program,) = fn.programs.values()
     assert sorted(program.tails) == [False, True]
+
+
+def _sync_count(fn):
+    """``fn()`` and the number of host synchronizations it made (CUDA's
+    sync debug mode warns on each)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["tiny", "3DMatch"])
+def test_unrolled_program_equals_register_fn(card, plan):
+    """``make_unrolled_register_fn`` on the card at U = 3 over three pairs,
+    with ``low_match_th`` between two pairs' mutual counts: the first call
+    (warm-up, capture) and two replays return, pair by pair, what
+    ``make_register_fn`` returns on the same inputs and draws, bit for bit;
+    the group takes both tails; a call launches three pairs' kernels and
+    makes one host read; every chain has its own stream and memory pool;
+    a result keeps its values through the calls after it."""
+    cuda.build_all()
+    cfg, pairs = _program_pairs(plan, card)
+    if plan == "tiny":
+        pairs.append(_tiny_pair(cfg, card, 700, 0.4))
+    else:
+        pairs.append(surface_pair(cfg, 2, card)[0])
+    gen = torch.Generator(card).manual_seed(0)
+    draws = [registration.make_draws(cfg, gen, card) for _ in pairs]
+    counts = [int(registration.register_pair(
+        BufferModel(cfg, seed=0).to(card), p, d).num_mutual)
+        for p, d in zip(pairs, draws)]
+    assert min(counts) < max(counts), counts
+    cfg = cfg.replace(static=dataclasses.replace(cfg.static,
+                                                 low_match_th=max(counts)))
+    model = BufferModel(cfg, seed=0).to(card)
+    single = registration.make_register_fn(model)
+    cuda.reset_launches()
+    want = [single(p, d) for p, d in zip(pairs, draws)]
+    want = [single(p, d) for p, d in zip(pairs, draws)]    # replays
+    per_pair = {k: v // 6 for k, v in cuda.launch_counts().items()}
+    fn = registration.make_unrolled_register_fn(model, 3)
+    got = []
+    for n_call in range(3):
+        cuda.reset_launches()
+        res, syncs = _sync_count(lambda: fn(pairs, draws))
+        got.append(res)
+        assert cuda.launch_counts() == {k: 3 * v for k, v in per_pair.items()}
+        if n_call:
+            assert syncs == 1
+        for u, w in enumerate(want):
+            assert all(torch.equal(a[u], b) for a, b in zip(res, w)), u
+    assert {registration.boost_taken(cfg, n)
+            for n in got[-1].num_mutual} == {False, True}
+    for res in got:
+        for u, w in enumerate(want):
+            assert all(torch.equal(a[u], b) for a, b in zip(res, w))
+    (program,) = fn.programs.values()
+    chains = program.chains
+    assert len({c.stream.cuda_stream for c in chains}) == 3
+    assert len({c.pool for c in chains}) == 3
+    assert all(sorted(c.tails) == [False, True] for c in chains)
 
 
 @pytest.mark.cuda
