@@ -1,4 +1,4 @@
-"""JAX variables -> this package's state dict.
+"""JAX variables <-> this package's state dict.
 
 :func:`variables_to_state_dict` turns the JAX package's variables
 ``{'Ref', 'Desc', 'Keypt', 'Inlier'} -> {'params', 'batch_stats'}`` (as
@@ -8,6 +8,9 @@ It is the inverse of the JAX package's ``compat/torch_convert.py``
 ``convert_state_dict``: Dense kernels (in, out) become Linear / 1x1-conv
 weights (out, in, ...), conv kernels (k..., in, out) become (out, in, k...),
 batch-norm ``mean``/``var`` become ``running_mean``/``running_var``.
+:func:`state_dict_to_variables` is ``convert_state_dict`` itself, and
+:func:`load_jax_model` builds a model from the JAX trainer's msgpack
+checkpoints.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import re
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+import torch
 
 # cylindrical-net / cost-net layer name -> index in the reference's ops list
 _CYL = {"conv3d_0": 0, "bn3d_0": 1, "conv2d_out": 21}
@@ -113,3 +117,107 @@ def variables_to_state_dict(variables: Dict[str, dict]) -> Dict[str, np.ndarray]
         if stage in ("Ref", "Keypt"):
             sd[f"{stage}.epsilon"] = np.array(-5.0, np.float32)
     return sd
+
+
+def _vn_path(rest: list) -> Tuple[tuple, str]:
+    """Torch key parts inside a VNLinearLeakyReLU -> (JAX path, kind)."""
+    if rest[0] in ("map_to_feat", "map_to_dir"):
+        return (rest[0], "kernel"), "linear"
+    assert rest[:2] == ["batchnorm", "bn"], rest
+    return ("batchnorm", "bn", rest[2]), ""
+
+
+def _jax_path(stage: str, rest: list) -> Tuple[tuple, str]:
+    """Torch key parts of one stage (after the stage name) -> (JAX path
+    with the torch leaf name last, kernel kind): the inverse of
+    :func:`_torch_key`."""
+    if stage in ("Ref", "Keypt"):
+        if rest[0] in ("encoder_blocks", "decoder_blocks"):
+            path, kind = _vn_path(rest[3:])
+            return (f"{rest[0]}_{rest[1]}", rest[2]) + path, kind
+        if rest[0] == "fc_layer":
+            path, kind = _vn_path(rest[2:])
+            return (f"fc_layer_{rest[1]}",) + path, kind
+        head = rest[0]
+        if rest[1] == "0":
+            if rest[2] == "vn_lin":
+                return (head, "std", "vn_lin", "kernel"), "linear"
+            path, kind = _vn_path(rest[3:])
+            return (head, "std", rest[2]) + path, kind
+        conv = {v: k for k, v in _HEAD.items()}[rest[1]]
+        if rest[2] == "weight":
+            return (head, conv, "kernel"), "conv1d"
+        return (head, conv, "bias"), ""
+    if stage == "Desc" and rest[0] == "conv_net":
+        base, kind = ("conv_net", {v: k for k, v in _CYL.items()}[int(rest[2])]), "conv"
+    elif stage == "Desc":
+        base = ({v: k for k, v in _DESC.items()}[".".join(rest[:2])],)
+        kind = "conv1x1"
+    else:
+        assert stage == "Inlier" and rest[:2] == ["conv", "ops"], rest
+        base, kind = ("conv", {v: k for k, v in _COST.items()}[int(rest[2])]), "conv"
+    if rest[-1] == "weight" and "bn" not in base[-1]:
+        return base + ("kernel",), kind
+    return base + (rest[-1],), ""
+
+
+def _from_kernel(w: np.ndarray, kind: str) -> np.ndarray:
+    """A torch weight in the layout of the flax kernel ``kind``: the
+    inverse of :func:`_kernel`."""
+    if kind == "linear":
+        return w.T
+    if kind == "conv1d":
+        return w[:, :, 0].T
+    if kind == "conv1x1":
+        return w[:, :, 0, 0].T
+    return w.transpose(tuple(range(2, w.ndim)) + (1, 0))
+
+
+def state_dict_to_variables(sd: Dict[str, np.ndarray]) -> Dict[str, dict]:
+    """A state dict under the reference's key names (numpy arrays or CPU
+    tensors) -> the JAX package's variables ``{stage: {'params': ...,
+    'batch_stats': ...}}`` of numpy float32 arrays, as the JAX package's
+    ``compat/torch_convert.py`` ``convert_state_dict`` makes them; the
+    batch-norm counters and the unused ``epsilon`` are dropped."""
+    leaf = {v: k for k, v in _LEAF.items()}
+    out: Dict[str, dict] = {}
+    for key, w in sd.items():
+        stage, *rest = key.split(".")
+        if rest == ["epsilon"] or rest[-1] == "num_batches_tracked":
+            continue
+        path, kind = _jax_path(stage, rest)
+        w = np.asarray(w.detach().cpu() if isinstance(w, torch.Tensor) else w,
+                       np.float32)
+        coll = ("batch_stats" if path[-1] in ("running_mean", "running_var")
+                else "params")
+        path = path[:-1] + (leaf.get(path[-1], path[-1]),)
+        node = out.setdefault(stage, {}).setdefault(coll, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(_from_kernel(w, kind) if kind
+                                              else w)
+    return out
+
+
+def load_jax_model(cfg, paths: Dict[str, str], device=None):
+    """A :class:`~buffer_tpu_torch.models.composite.BufferModel` of ``cfg``
+    from the JAX trainer's flax-msgpack checkpoints, ``paths``: stage ->
+    file (``<stage>/best.msgpack``), each stage's subtree from its own
+    file (``buffer_tpu/train/checkpoint.py:37-45``), on ``device``
+    (default: the CUDA card), in eval mode.  Raises when the files miss a
+    parameter or buffer of the model or hold one it does not have."""
+    from buffer_tpu_torch import resolve_device
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.train.checkpoint import load_file
+    sd = variables_to_state_dict({stage: load_file(path)[stage]
+                                  for stage, path in paths.items()})
+    model = BufferModel(cfg)
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in sd)
+    unexpected = sorted(k for k in sd if k not in own)
+    if missing or unexpected:
+        raise KeyError(f"JAX checkpoints do not match the model: missing "
+                       f"{missing[:8]} ({len(missing)} in all), unexpected "
+                       f"{unexpected[:8]} ({len(unexpected)} in all)")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return model.to(resolve_device(device))

@@ -1,6 +1,9 @@
-"""Gradient-safe norms (counterpart of ``buffer_tpu/core/numerics.py``)."""
+"""Gradient-safe norms (counterpart of ``buffer_tpu/core/numerics.py``)
+and the fp32 matmul precision of the registration path."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -15,3 +18,17 @@ def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False,
 def safe_normalize(x: torch.Tensor, dim=-1, eps: float = 1e-8) -> torch.Tensor:
     """x / max(|x|, eps); zero vectors stay zero."""
     return x / safe_norm(x, dim=dim, keepdim=True, eps=eps)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """TF32 off for matmuls and cuDNN convolutions within the block."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

@@ -21,6 +21,12 @@ def transform(pts: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     return pts @ R.transpose(-1, -2) + t[..., None, :]
 
 
+def decompose_trans(trans: torch.Tensor):
+    """Split [..., 4, 4] into (R [..., 3, 3], t [..., 3, 1])
+    (utils/SE3.py:59-71)."""
+    return trans[..., :3, :3], trans[..., :3, 3:4]
+
+
 def integrate_trans(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[..., 4, 4] from R [..., 3, 3] and t [..., 3] or [..., 3, 1]."""
     t = t.reshape(R.shape[:-2] + (3,))
@@ -28,6 +34,19 @@ def integrate_trans(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.eye(4, dtype=R.dtype,
                        device=R.device)[3].expand(R.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def concatenate(trans1: torch.Tensor, trans2: torch.Tensor) -> torch.Tensor:
+    """The composition ``trans1 @ trans2`` of two SE(3) transforms
+    (utils/SE3.py:98-112)."""
+    return trans1 @ trans2
+
+
+def inverse(trans: torch.Tensor) -> torch.Tensor:
+    """Closed-form SE(3) inverse: (R^T, -R^T t)."""
+    R, t = decompose_trans(trans)
+    Rt = R.transpose(-1, -2)
+    return integrate_trans(Rt, -(Rt @ t))
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -175,5 +194,31 @@ def kabsch_quat(A: torch.Tensor, B: torch.Tensor,
         q = q / torch.clamp(torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)),
                             min=eps)
     R = quaternion_to_rotation_matrix(q)
+    t = cB.transpose(-1, -2) - R @ cA.transpose(-1, -2)
+    return integrate_trans(R, t[..., 0])
+
+
+def kabsch(A: torch.Tensor, B: torch.Tensor, weights: torch.Tensor | None = None,
+           eps: float = 1e-6) -> torch.Tensor:
+    """Weighted rigid alignment by SVD (``buffer_tpu/core/se3.py:253-281``;
+    reference ``rigid_transform_3d``, models/BUFFER.py:424-464): weighted
+    centroids, H = (A - cA)^T W (B - cB), ``torch.linalg.svd`` and the
+    det-sign correction R = V diag(1, 1, d) U^T.
+
+    A, B: [bs, N, 3]; weights: [bs, N] (>= 0).  Returns [bs, 4, 4] with
+    ``B ~= R @ A + t``."""
+    if weights is None:
+        weights = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device)
+    w = weights[..., None]
+    wsum = torch.sum(weights, dim=-1, keepdim=True)[..., None] + eps
+    cA = torch.sum(A * w, dim=-2, keepdim=True) / wsum
+    cB = torch.sum(B * w, dim=-2, keepdim=True) / wsum
+    H = ((A - cA) * w).transpose(-1, -2) @ (B - cB)
+    U, _, Vt = torch.linalg.svd(H, full_matrices=False)
+    V = Vt.transpose(-1, -2)
+    d = torch.linalg.det(V @ U.transpose(-1, -2))
+    diag = torch.cat([torch.ones(d.shape + (2,), dtype=A.dtype,
+                                 device=A.device), d[..., None]], dim=-1)
+    R = (V * diag[..., None, :]) @ U.transpose(-1, -2)
     t = cB.transpose(-1, -2) - R @ cA.transpose(-1, -2)
     return integrate_trans(R, t[..., 0])

@@ -30,7 +30,6 @@ FPS_SINGLE = cuda.register(cuda.Kernel(
     [P, P, I, I, I, I, I, I, P, P],
     "buffer_tpu/kernels/fps_pallas.py:67"))
 
-MAX_POINTS = 64 * 1024
 # CTAs a cluster: 8 is the portable size; Hopper also schedules 16, which
 # csrc/fps.cu opts in to (fps_max_active_clusters reports the card's count)
 MAX_CLUSTER = 16
@@ -38,6 +37,10 @@ PORTABLE_CLUSTER = 8
 MIN_CTA_POINTS = 512     # a cloud is split no finer than this a CTA
 TARGET_THREADS = 256     # a CTA's threads: few warps to reduce a step
 POINTS_A_THREAD = (1, 2, 4, 8, 16)   # csrc/fps.cu's instantiations
+# csrc/fps.cu's max_threads<16>(): the threads a CTA that the register
+# budget allows at 16 points a thread, which bounds the cloud
+MAX_THREADS_16 = 512
+MAX_POINTS = MAX_CLUSTER * MAX_THREADS_16 * 16
 
 
 def fps_plan(N: int) -> Tuple[int, int, int]:
@@ -45,14 +48,16 @@ def fps_plan(N: int) -> Tuple[int, int, int]:
     N points: as many CTAs as the cloud fills with MIN_CTA_POINTS each, up
     to MAX_CLUSTER; the fewest points a thread that keep a CTA within
     TARGET_THREADS threads (a step's latency grows with a CTA's warps more
-    than with its points); then only as many CTAs as those cover.  CTA r
+    than with its points), or past 65536 points 16 a thread and up to
+    MAX_THREADS_16 threads; then only as many CTAs as those cover.  CTA r
     owns points [r*T*P, (r+1)*T*P) and its thread t the P points from
     (r*T + t)*P on, see :func:`fps_points`; no CTA is empty.  Raises for N
     outside 1..MAX_POINTS."""
     if not 1 <= N <= MAX_POINTS:
         raise ValueError(f"fps: N={N} must be in 1..{MAX_POINTS}")
     per_cta = -(-N // min(MAX_CLUSTER, -(-N // MIN_CTA_POINTS)))
-    P = next(p for p in POINTS_A_THREAD if -(-per_cta // p) <= TARGET_THREADS)
+    P = next((p for p in POINTS_A_THREAD
+              if -(-per_cta // p) <= TARGET_THREADS), POINTS_A_THREAD[-1])
     T = 32 * -(-per_cta // (32 * P))
     return -(-N // (T * P)), T, P
 

@@ -36,6 +36,7 @@ from buffer_tpu_torch.core.numerics import safe_normalize
 from buffer_tpu_torch.kernels.geom_cuda import spt_pooled_cuda
 from buffer_tpu_torch.nn.cylindrical import CylindricalNet
 from buffer_tpu_torch.ops.neighbors import ball_sample_planes, ball_sample_points
+from buffer_tpu_torch.ops.normals import cal_z_axis
 
 BIG = 1e9
 
@@ -91,14 +92,19 @@ def extract_patches(pts: torch.Tensor, pts_valid: torch.Tensor,
     return torch.cat([patches[:, :, :-1], centre], dim=2)
 
 
-def axis_align(patches: torch.Tensor, dataset: str, z_axis: torch.Tensor):
-    """patches [K, S, 3] with the centre last, z_axis [K, 3] ->
+def axis_align(patches: torch.Tensor, dataset: str,
+               z_axis: Optional[torch.Tensor] = None):
+    """patches [K, S, 3] with the centre last, z_axis [K, 3] or None ->
     (delta [K, S, 3] centred and aligned, rand_axis [K, 3], R [K, 3, 3])
     (patch_embedder.py:119-146): Rodrigues taking z_axis to +z for the
-    3DMatch family, identity frames and rand_axis = x for KITTI and ETH."""
+    3DMatch family, identity frames and rand_axis = x for KITTI and ETH.
+    Without an axis the 3DMatch family takes each patch's own,
+    ``safe_normalize(cal_z_axis(delta, centre))``."""
     center = patches[:, -1, :]
     delta = patches - center[:, None, :]
     if dataset in ("3DMatch", "3DLoMatch"):
+        if z_axis is None:
+            z_axis = safe_normalize(cal_z_axis(delta, ref_point=center), dim=-1)
         target = unit_axis(2, patches).expand_as(z_axis)
         R = se3.rodrigues_a_to_b(z_axis, target)
         rand_axis = safe_normalize(torch.cross(z_axis, target, dim=-1), dim=-1)

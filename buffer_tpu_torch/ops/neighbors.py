@@ -15,10 +15,15 @@
 * :func:`nearest_common_morton` -- 1-NN between two clouds that are not
   sorted on one curve (the gt-warped source against the target when
   training samples its matches): a joint Morton sort on the device, then
-  :func:`nearest`.
+  :func:`nearest`;
+* :func:`radius_knn_banded` and :func:`nearest_banded` -- the banded
+  search where the kernels cannot take the support (past their 16-bit
+  rank, or under 16 grid rows): each query block searches a contiguous
+  window of support ranks, gathered from device-side starts, with exact
+  fp32 distances and an exact ``torch.topk`` / ``torch.min``.
 
 All take a batch of clouds [B, ...] and validity masks.  The dispatch is
-the TPU path's own (``buffer_tpu/ops/neighbors.py:98-116, 402-411``):
+the TPU path's own (``buffer_tpu/ops/neighbors.py:98-120, 402-411``):
 :func:`knn_route` and :func:`nearest_route` name the branch a shape takes.
 """
 
@@ -28,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from buffer_tpu_torch.core.numerics import full_fp32
 from buffer_tpu_torch.kernels.geom_cuda import (ball_sample_planes_cuda,
                                                 ball_sample_points_cuda,
                                                 nearest_cuda)
@@ -36,37 +42,33 @@ from buffer_tpu_torch.kernels.knn_cuda import (banded_knn_cuda, banded_nn1_cuda,
                                                banded_win_rows)
 
 BIG = 1e9
+# elements of one [B, blocks, queries, window] distance field of the
+# banded fallbacks (128 MB of fp32): a search stays within ~0.5 GB
+FIELD_ELEMS = 1 << 25
 
 
 def knn_route(support_size: int, band: Optional[int]) -> str:
     """"banded" (the banded kernel; the band restricts the search, or its
-    window covers the whole grid) or "dense" (the exact search).  Raises
-    for a restricting band the kernel cannot take: the reference's XLA
-    fallback ``radius_knn_banded`` is not ported."""
+    window covers the whole grid), "fallback" (:func:`radius_knn_banded`: a
+    restricting band on a support the kernel cannot take) or "dense" (the
+    exact search)."""
     S = support_size
     if band and banded_supported(S):
         _, covers = banded_win_rows(S, band)
         if 2 * band < S or covers:
             return "banded"
     if band and 2 * band < S:
-        raise NotImplementedError(
-            f"radius_knn_banded (the XLA fallback for a support of {S} "
-            f"points, band {band}) is not ported")
+        return "fallback"
     return "dense"
 
 
 def nearest_route(support_size: int, band: Optional[int]) -> str:
     """"banded" (the banded 1-NN kernel) when the band restricts the search
-    and the kernel takes the support, else "exact".  Raises for a
-    restricting band the kernel cannot take: the reference's XLA fallback
-    ``nearest_banded`` is not ported."""
+    and the kernel takes the support, "fallback" (:func:`nearest_banded`)
+    when it restricts and the kernel cannot take it, else "exact"."""
     S = support_size
     if band and 2 * band < S:
-        if banded_supported(S):
-            return "banded"
-        raise NotImplementedError(
-            f"nearest_banded (the XLA fallback for a support of {S} points, "
-            f"band {band}) is not ported")
+        return "banded" if banded_supported(S) else "fallback"
     return "exact"
 
 
@@ -90,14 +92,19 @@ def radius_knn(query: torch.Tensor, support: torch.Tensor,
     [B, Q] (needed on the banded branch) -> (d2 [B, Q, k] ascending,
     idx [B, Q, k] int32, valid [B, Q, k]).  The banded branch returns the
     truncated distances of its packed keys (low 16 mantissa bits clear) and
-    may hold any index in slots that are not valid; the dense branch puts
-    d2 = 1e9 and idx 0 there (the shadow neighbours of the reference)."""
+    may hold any index in slots that are not valid; the dense and fallback
+    branches put d2 = 1e9 and idx 0 there (the shadow neighbours of the
+    reference)."""
     B, Q, _ = query.shape
     S = support.shape[1]
-    if knn_route(S, band) == "banded":
+    route = knn_route(S, band)
+    if route == "banded":
         wr, _ = banded_win_rows(S, band)
         return banded_knn_cuda(query, support, support_valid,
                                _query_mask(query, query_valid), k, radius, wr)
+    if route == "fallback":
+        return radius_knn_banded(query, support, support_valid, k, radius,
+                                 band, query_valid=query_valid)
     r2 = None if radius is None else float(radius) ** 2
     s2 = torch.sum(support * support, dim=-1)                     # [B, S]
     d_out = torch.empty((B, Q, k), dtype=query.dtype, device=query.device)
@@ -127,11 +134,151 @@ def nearest(query: torch.Tensor, support: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """1-NN: query [B, Q, 3] over support [B, S, 3] -> (d2 [B, Q],
     idx [B, Q] int32).  Replaces KNN_CUDA(k=1) (models/BUFFER.py:335-359).
-    The banded branch searches +-1024 ranks and returns truncated d2."""
-    if nearest_route(support.shape[1], band) == "banded":
+    The banded branch searches +-1024 ranks and returns truncated d2; the
+    fallback searches the window of :func:`nearest_banded`."""
+    route = nearest_route(support.shape[1], band)
+    if route == "banded":
         return banded_nn1_cuda(query, support, support_valid,
                                _query_mask(query, query_valid))
+    if route == "fallback":
+        return nearest_banded(query, support, support_valid, band,
+                              query_valid=query_valid)
     return nearest_cuda(query, support, support_valid)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _band_starts(Q: int, S: int, qb: int, win: int,
+                 q_valid: Optional[torch.Tensor] = None,
+                 s_valid: Optional[torch.Tensor] = None,
+                 device=None) -> torch.Tensor:
+    """First support rank of the window of each block of ``qb`` queries,
+    ``buffer_tpu/ops/neighbors.py:203-222`` in its fp32 arithmetic: the
+    block centre scaled by the ratio of the valid counts (q_valid [B, .],
+    s_valid [B, S]; S / Q without masks), less half the window, rounded,
+    clipped to [0, S - win], aligned down to 256.  Returns [B, Q // qb]
+    int32 ([Q // qb] without masks), on the device."""
+    dev = s_valid.device if s_valid is not None else device
+    centers = torch.arange(0, Q, qb, dtype=torch.float32, device=dev) + qb / 2
+    if q_valid is not None and s_valid is not None:
+        qn = torch.clamp(torch.sum(q_valid.to(torch.float32), dim=-1), min=1.0)
+        sn = torch.clamp(torch.sum(s_valid.to(torch.float32), dim=-1), min=1.0)
+        scaled = centers * (sn / qn)[..., None]
+    else:
+        scaled = centers * (S / Q)
+    starts = torch.clamp(torch.round(scaled - win / 2), 0, max(S - win, 0))
+    return (starts / 256.0).to(torch.int32) * 256
+
+
+def _windows(query, support, support_valid, starts, qb, win):
+    """Query blocks and the support windows they search, a group of blocks
+    at a time (each group's distance field within FIELD_ELEMS): yields
+    (first block, [B, G, qb, win] fp32 distances with the invalid support
+    at 1e9, [B, G, win] support ranks).  The ranks come from the
+    device-side starts, so the search reads nothing back to the host."""
+    B, Qp = query.shape[:2]
+    nblk = Qp // qb
+    cols = torch.arange(win, device=query.device)
+    s2 = torch.sum(support * support, dim=-1)
+    G = max(1, FIELD_ELEMS // (B * qb * win))
+    for g0 in range(0, nblk, G):
+        g = min(G, nblk - g0)
+        rows = starts[:, g0:g0 + g, None].long() + cols         # [B, g, win]
+        flat = rows.reshape(B, -1)
+        sw = gather_rows(support, flat).reshape(B, g, win, 3)
+        vw = torch.gather(support_valid, 1, flat).reshape(B, g, 1, win)
+        s2w = torch.gather(s2, 1, flat).reshape(B, g, 1, win)
+        qc = query[:, g0 * qb:(g0 + g) * qb].reshape(B, g, qb, 3)
+        q2 = torch.sum(qc * qc, dim=-1, keepdim=True)
+        # (|q|^2 - 2 q.s) + |s|^2, the reference's order, in place
+        d2 = (qc @ sw.transpose(-1, -2)).mul_(-2.0).add_(q2).add_(s2w)
+        yield g0, d2.masked_fill_(~vw, BIG), rows
+
+
+def _padded(query: torch.Tensor, qb: int) -> torch.Tensor:
+    Q = query.shape[1]
+    pad = _round_up(Q, qb) - Q
+    return torch.nn.functional.pad(query, (0, 0, 0, pad)) if pad else query
+
+
+def radius_knn_banded(query: torch.Tensor, support: torch.Tensor,
+                      support_valid: torch.Tensor, k: int,
+                      radius: Optional[float], band: int,
+                      query_block: int = 1024,
+                      query_valid: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rank-banded radius-kNN for Morton-ordered clouds
+    (``buffer_tpu/ops/neighbors.py:225-279``): each block of
+    ``query_block`` queries searches the ``2 * band`` support ranks from
+    its :func:`_band_starts` start.  The distances are exact fp32 (TF32
+    off), the radius and validity are judged on them, and the k nearest
+    come from an exact sorted ``torch.topk`` (the reference's bf16 scores
+    and ``approx_max_k`` are TPU workarounds).  Returns :func:`radius_knn`'s
+    contract: (d2 [B, Q, k] ascending, idx [B, Q, k] int32, valid), d2 =
+    1e9 and idx 0 where not valid."""
+    B, Q, _ = query.shape
+    S = support.shape[1]
+    win, qb = 2 * band, query_block
+    qpad = _padded(query, qb)
+    starts = _band_starts(qpad.shape[1], S, qb, win, query_valid,
+                          support_valid, device=query.device)
+    starts = starts.expand(B, -1)
+    r2 = None if radius is None else float(radius) ** 2
+    d_out = torch.empty((B, qpad.shape[1], k), dtype=query.dtype,
+                        device=query.device)
+    i_out = torch.empty((B, qpad.shape[1], k), dtype=torch.int32,
+                        device=query.device)
+    with full_fp32():
+        for g0, d2, rows in _windows(qpad, support, support_valid, starts, qb,
+                                     win):
+            if r2 is not None:
+                d2 = d2.masked_fill_(d2 > r2, BIG)
+            d, loc = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
+            ok = d < BIG
+            idx = torch.gather(rows[:, :, None, :].expand(-1, -1, qb, -1), 3,
+                               loc)
+            sl = slice(g0 * qb, g0 * qb + d.shape[1] * qb)
+            d_out[:, sl] = torch.clamp(d, min=0.0).reshape(B, -1, k)
+            i_out[:, sl] = torch.where(ok, idx, torch.zeros_like(idx)).reshape(
+                B, -1, k).to(torch.int32)
+    d_out, i_out = d_out[:, :Q], i_out[:, :Q]
+    return d_out, i_out, d_out < BIG
+
+
+def nearest_banded(query: torch.Tensor, support: torch.Tensor,
+                   support_valid: torch.Tensor, band: int,
+                   query_block: int = 512,
+                   query_valid: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank-banded 1-NN for Morton-ordered clouds, exact within its window
+    (``buffer_tpu/ops/neighbors.py:339-382``): each block of
+    ``query_block`` queries searches ``min(round_up(2 * band + span, 256),
+    S)`` support ranks, ``span`` the ranks one block spans, from its
+    :func:`_band_starts` start; exact fp32 distances (TF32 off), the first
+    minimum.  Returns (d2 [B, Q] clamped at 0, idx [B, Q] int32)."""
+    B, Q, _ = query.shape
+    S = support.shape[1]
+    qb = query_block
+    span = -(-qb * S // Q)
+    win = min(_round_up(2 * band + span, 256), S)
+    qpad = _padded(query, qb)
+    starts = _band_starts(qpad.shape[1], S, qb, win, query_valid,
+                          support_valid, device=query.device).expand(B, -1)
+    d_out = torch.empty((B, qpad.shape[1]), dtype=query.dtype,
+                        device=query.device)
+    i_out = torch.empty((B, qpad.shape[1]), dtype=torch.int32,
+                        device=query.device)
+    with full_fp32():
+        for g0, d2, rows in _windows(qpad, support, support_valid, starts, qb,
+                                     win):
+            d, loc = torch.min(d2, dim=-1)                         # [B, g, qb]
+            sl = slice(g0 * qb, g0 * qb + d.shape[1] * qb)
+            d_out[:, sl] = torch.clamp(d, min=0.0).reshape(B, -1)
+            i_out[:, sl] = torch.gather(rows, 2, loc).reshape(B, -1).to(
+                torch.int32)
+    return d_out[:, :Q], i_out[:, :Q]
 
 
 def ball_sample_planes(query: torch.Tensor, support: torch.Tensor,

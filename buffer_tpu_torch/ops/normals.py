@@ -2,16 +2,18 @@
 
 :func:`smallest_eigvec_sym3` is the reference's closed-form (Cardano)
 symmetric 3x3 eigensolver, kept instead of ``torch.linalg.eigh`` so the
-eigenvector's sign and rounding follow the reference."""
+eigenvector's sign and rounding follow the reference; it also gives the
+patch z-axis of :func:`cal_z_axis`."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from buffer_tpu_torch.core.numerics import safe_norm
-from buffer_tpu_torch.ops.neighbors import gather_rows
+from buffer_tpu_torch.ops.neighbors import gather_rows, radius_knn
 
 EPS = 1e-12
 
@@ -50,11 +52,30 @@ def smallest_eigvec_sym3(A: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 1e-10, v / torch.clamp(n, min=EPS), fallback)
 
 
+def estimate_normals(points: torch.Tensor, valid: torch.Tensor, knn: int = 30,
+                     chunk: int = 4096,
+                     viewpoint: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """kNN-PCA normals oriented toward ``viewpoint`` (default: the origin,
+    Open3D's ``orient_normals_towards_camera_location()``): the exact dense
+    :func:`~buffer_tpu_torch.ops.neighbors.radius_knn` with no radius, then
+    :func:`normals_from_neighbors`.  points [N, 3] or [B, N, 3], valid
+    [N] or [B, N] -> normals of the same shape (zeros for invalid)."""
+    single = points.dim() == 2
+    if single:
+        points, valid = points[None], valid[None]
+    _, idx, nvalid = radius_knn(points, points, valid, k=knn, radius=None,
+                                query_chunk=chunk)
+    n = normals_from_neighbors(points, valid, idx, nvalid, viewpoint)
+    return n[0] if single else n
+
+
 def normals_from_neighbors(points: torch.Tensor, valid: torch.Tensor,
-                           idx: torch.Tensor, nvalid: torch.Tensor
+                           idx: torch.Tensor, nvalid: torch.Tensor,
+                           viewpoint: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """PCA normals from kNN tables, oriented toward the origin (Open3D's
-    estimate_normals + orient_normals_towards_camera_location()).
+    """PCA normals from kNN tables, oriented toward ``viewpoint`` [3]
+    (default: the origin; Open3D's estimate_normals +
+    orient_normals_towards_camera_location()).
 
     points [B, N, 3], valid [B, N], idx/nvalid [B, N, k] -> [B, N, 3]
     (zeros for invalid points)."""
@@ -65,6 +86,18 @@ def normals_from_neighbors(points: torch.Tensor, valid: torch.Tensor,
     centered = (nbrs - mean[..., None, :]) * w
     cov = centered.transpose(-1, -2) @ centered          # [B, N, 3, 3]
     n = smallest_eigvec_sym3(cov)
-    flip = torch.sum(n * (0.0 - points), dim=-1) < 0
+    vp = 0.0 if viewpoint is None else viewpoint
+    flip = torch.sum(n * (vp - points), dim=-1) < 0
     n = torch.where(flip[..., None], -n, n)
     return torch.where(valid[..., None], n, torch.zeros_like(n))
+
+
+def cal_z_axis(local_cor: torch.Tensor, ref_point: torch.Tensor) -> torch.Tensor:
+    """Patch z-axis (``buffer_tpu/ops/normals.py:233-247``; reference
+    utils/common.py:709-726): the smallest principal direction of the
+    *uncentred* covariance of local_cor [B, N, 3], flipped where
+    ``sum(-z * ref_point) < 0`` (ref_point [B, 3]).  Returns [B, 3]."""
+    cov = local_cor.transpose(-1, -2) @ local_cor        # [B, 3, 3]
+    z = smallest_eigvec_sym3(cov)
+    flip = torch.sum(-z * ref_point, dim=-1) < 0
+    return torch.where(flip[:, None], -z, z)

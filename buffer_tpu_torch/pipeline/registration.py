@@ -25,7 +25,6 @@ package compiles U ``register_pair`` traces into one program.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import NamedTuple, Optional
 
@@ -33,6 +32,7 @@ import torch
 
 from buffer_tpu_torch import resolve_device
 from buffer_tpu_torch.config import Config
+from buffer_tpu_torch.core.numerics import full_fp32
 from buffer_tpu_torch.kernels import cuda
 from buffer_tpu_torch.models import patch_embedder as pe
 from buffer_tpu_torch.models.composite import BufferModel
@@ -108,6 +108,41 @@ def orient_axes(axis: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return axis * s[..., None]
 
 
+def describe_cloud(model: BufferModel, cfg: Config, prio: torch.Tensor,
+                   spt_prio: torch.Tensor, raw: torch.Tensor,
+                   raw_mask: torch.Tensor, kpts: torch.Tensor,
+                   axes: Optional[torch.Tensor] = None):
+    """MiniSpinNet over one cloud's keypoints, as the JAX package's
+    ``describe_cloud`` (``buffer_tpu/pipeline/registration.py:75-115``):
+    patches (``ball_sample_points``, ball priorities prio [R]), aligned by
+    :func:`~buffer_tpu_torch.models.patch_embedder.axis_align` with the
+    rotation applied (axes [K, 3], or None: each patch's own
+    ``cal_z_axis``), scaled by 1 / des_r, then the fused front with an
+    identity alignment or, with ``fused_desc`` off, the sampled SPT (SPT
+    priorities spt_prio [S]).  raw [R, 3], raw_mask [R], kpts [K, 3] ->
+    (desc [K, 32], equi [K, ele, azi, 32], R [K, 3, 3]).  Inference: no
+    gradients, TF32 off."""
+    p = cfg.patch
+    with torch.no_grad(), full_fp32():
+        patches = pe.extract_patches(raw[None], raw_mask[None], prio[None],
+                                     kpts[None], p.des_r,
+                                     p.num_points_per_patch)[0]
+        delta, _, R = pe.axis_align(patches, cfg.data.dataset, axes)
+        delta = delta / p.des_r
+        if cfg.static.fused_desc:
+            eye = torch.eye(3, dtype=delta.dtype, device=delta.device)
+            pooled = pe.fused_point_features(
+                model.Desc, spt_prio, tuple(delta.unbind(-1)),
+                eye.expand(delta.shape[0], 3, 3), p.rad_n, p.azi_n, p.ele_n,
+                p.delta / p.rad_n, p.voxel_sample)
+            desc, equi = model.Desc(pooled)
+        else:
+            inv = pe.spt(spt_prio, delta, p.rad_n, p.azi_n, p.ele_n,
+                         p.delta / p.rad_n, p.voxel_sample)
+            desc, equi = model.Desc(inv_patches=inv)
+    return desc, equi, R
+
+
 def describe_both(model: BufferModel, cfg: Config, draws: Draws, raw, raw_mask,
                   kpts, axes):
     """MiniSpinNet over both clouds' keypoints in one batch [2K, ...].
@@ -141,20 +176,6 @@ def describe_both(model: BufferModel, cfg: Config, draws: Draws, raw, raw_mask,
         desc, equi = model.Desc(inv_patches=inv)
     Rs = R_all.reshape(2, K, 3, 3)
     return (desc[:K], equi[:K], Rs[0]), (desc[K:], equi[K:], Rs[1])
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """TF32 off for matmuls and cuDNN convolutions within the block."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
 
 
 class StageTimer:

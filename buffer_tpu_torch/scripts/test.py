@@ -9,9 +9,11 @@ reference ``ThreeDMatch/test.py``, ``KITTI/test.py``,
 
 ``--torch-weights`` takes a reference snapshot directory
 (``<stage>/best.pth`` holding the whole composite state dict);
-``--weights`` this package's own per-stage checkpoints
-(``<stage>/best.pth`` written by ``train.checkpoint``).  Runs on the CUDA
-card unless ``--device cpu`` is given.
+``--weights`` per-stage checkpoints: the JAX trainer's
+(``<stage>/best.msgpack``, the layout of the repository's scripts) where
+that file exists, else this package's own (``<stage>/best.pth`` written by
+``train.checkpoint``).  Runs on the CUDA card unless ``--device cpu`` is
+given.
 
 Started by ``torchrun`` (``WORLD_SIZE`` > 1), every rank joins the process
 group and ``run_eval`` registers the pairs one a rank (data parallelism
@@ -54,19 +56,21 @@ def make_dataset(cfg):
 def load_model(cfg, weights: Optional[str], torch_weights: Optional[str],
                device):
     """A model of ``cfg`` on ``device`` from a reference snapshot directory
-    (``torch_weights``) or this package's per-stage checkpoints
-    (``weights``), each ``<dir>/<stage>/best.pth``; a missing file
-    raises."""
+    (``torch_weights``, each ``<dir>/<stage>/best.pth``) or per-stage
+    checkpoints (``weights``, each ``<dir>/<stage>/best.msgpack`` of the JAX
+    trainer where present, else ``<dir>/<stage>/best.pth``); a missing
+    file raises."""
     if torch_weights:
         from buffer_tpu_torch.compat.torch_convert import load_reference_model
         return load_reference_model(
             cfg, {s: os.path.join(torch_weights, s, "best.pth")
                   for s in STAGES}, device)
     from buffer_tpu_torch.models.composite import BufferModel
-    from buffer_tpu_torch.train.checkpoint import merge_stage_checkpoints
+    from buffer_tpu_torch.train.checkpoint import (best_file,
+                                                   merge_stage_checkpoints)
     model = BufferModel(cfg)
     model.load_state_dict(merge_stage_checkpoints(
-        {s: os.path.join(weights, s, "best.pth") for s in STAGES}))
+        {s: best_file(weights, s) for s in STAGES}))
     return model.to(device)
 
 
@@ -79,7 +83,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     ap.add_argument("--config", default="3DMatch", choices=list(PRESETS))
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--weights", default=None,
-                    help="directory of this package's <stage>/best.pth")
+                    help="directory of <stage>/best.msgpack (the JAX "
+                         "trainer's) or this package's <stage>/best.pth")
     ap.add_argument("--torch-weights", default=None,
                     help="reference snapshot directory with <stage>/best.pth")
     ap.add_argument("--max-pairs", type=int, default=None)

@@ -9,9 +9,10 @@ kept under ``<out>/<stage>/best.pth``:
     python -m buffer_tpu_torch.scripts.train --config KITTI --tiny \\
         --device cpu --data-root <fixture tree> --out <dir> --max-iter 2
 
-A stage takes the other stages' weights from ``<out>/<other>/best.pth``,
-else from ``--resume``'s, and only that stage's entries of the file.  Runs
-on the CUDA card unless ``--device cpu`` is given.
+A stage takes the other stages' weights from ``<out>/<other>/``, else from
+``--resume``'s, and only that stage's entries of the file: ``best.msgpack``
+(the JAX trainer's) where present, else ``best.pth``.  Runs on the CUDA
+card unless ``--device cpu`` is given.
 
 A run repeats: each split's loader draws its augmentation (swap, rotation,
 jitter) from a ``RandomState`` seeded from ``manual_seed`` (the reference's
@@ -59,17 +60,17 @@ def make_dataset(cfg, split: str, rs: np.random.RandomState):
 
 def load_other_stages(model, stage: str, out: str,
                       resume: Optional[str]) -> None:
-    """Each of the model's stages but ``stage`` from
-    ``<out>/<other>/best.pth``, else from ``<resume>/<other>/best.pth``,
-    taking only that stage's entries (the freeze-and-merge of
-    ThreeDMatch/train.py:37-47)."""
+    """Each of the model's stages but ``stage`` from ``<out>/<other>/``,
+    else from ``<resume>/<other>/``, taking only that stage's entries (the
+    freeze-and-merge of ThreeDMatch/train.py:37-47); in each directory
+    ``best.msgpack`` (the JAX trainer's) where present, else ``best.pth``."""
     from buffer_tpu_torch.train import checkpoint
     for other in model.cfg.train.all_stage:
         if other == stage:
             continue
-        src = os.path.join(out, other, "best.pth")
+        src = checkpoint.best_file(out, other)
         if not os.path.exists(src) and resume:
-            src = os.path.join(resume, other, "best.pth")
+            src = checkpoint.best_file(resume, other)
         if os.path.exists(src):
             merged = checkpoint.merge_stage_checkpoints({other: src})
             getattr(model, other).load_state_dict(

@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds every
    CUDA kernel from ``buffer_tpu_torch/csrc`` (one nvcc per library, all
    started together).
-2. Drives twenty-three paths, each with every kernel launch counter set to 0
+2. Drives twenty-four paths, each with every kernel launch counter set to 0
    just before it and read just after (in each rank's own process for the
    data-parallel ones); every kernel of a path must have run on every pair
    (or step) of it, as often as the path's table says:
@@ -171,6 +171,21 @@
      launches, the record against the per-pair lines; ms/pair.
    * "calibrate": ``scripts.calibrate.main`` over the eval 3DMatch tree
      (host work), its suggestions beside the shipped preset's caps.
+   * "last modules" (``last_modules_path``, after the recorded runs): a
+     KITTI pair at the dense-LiDAR plan (81920 level-0 points, past the
+     banded kernels' 65536-rank reach) eager and through
+     ``make_register_fn`` (bit-equal; KITTI's launches less the two
+     banded-kNN launches the fallback ``radius_knn_banded`` took; its FPS
+     and banded 1-NN calls bit-equal to their plain versions); the
+     fallbacks at that shape scored against the exact searches (recall >
+     0.97, 1-NN agreement > 0.99; the 1-NN also bit-equal as a graph
+     replay), with ms and peak memory; ``describe_cloud`` on the main
+     path's pair against ``describe_both`` (1e-5) and its plain-version run
+     (2e-5), with and without axes; ``estimate_normals`` and
+     ``cal_z_axis`` against float64, ``kabsch`` against ``kabsch_quat``
+     (1e-5); the weights through flax msgpack files
+     (``save_variables``, ``load_file``, ``load_jax_model``) registering
+     the pair bit-equal.
    Prints each phase's wall seconds (``phase_s``), ms/pair and a per-stage
    breakdown (CUDA events) of each preset,
    and ms/step (host clock around a synchronized step) and peak memory
@@ -348,6 +363,18 @@ UNROLL = {"3DMatch": (1, 2, 3), "KITTI": (1, 2)}
 # spin kernels): a profile that shows fewer kernels than the counters is
 # taken again, up to this many times
 PROFILE_ATTEMPTS = 3
+# "last modules": the dense-LiDAR plan, the KITTI preset with 81920
+# level-0 points (the loader's cap raised to match), past the banded
+# kernels' 65536-rank reach, so the level-0 kNN and pool 0 take the
+# fallback radius_knn_banded and the other searches KITTI's kernels; one
+# cloud's descriptors (describe_cloud) launch the stacked-point ball
+# sampling and the SPT front; the 1-NN fallback's queries are the level-0
+# points moved by this much noise (m)
+DENSE_POINTS = 81920
+PER_PAIR["KITTI dense"] = dict(PER_PAIR["KITTI"],
+                               bknn=PER_PAIR["KITTI"]["bknn"] - 2)
+DESCRIBE_CLOUD = {"ball_sample_points": 1, "spt_pooled": 1}
+NN_JITTER = 0.05
 DISPATCH_APIS = (r"(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|"
                  r"cuLaunchKernelEx|cudaGraphLaunch|cudaMemcpyAsync|"
                  r"cudaMemsetAsync)(_v\d+)?")
@@ -2666,6 +2693,358 @@ def calibrate_path(cfg, roots: dict) -> dict:
     return line
 
 
+def dense_cfg(kcfg, n: int = DENSE_POINTS):
+    """The KITTI preset with ``n`` level-0 points (the dense-LiDAR plan)."""
+    return kcfg.replace(
+        static=dataclasses.replace(kcfg.static, points_l0=n),
+        data=dataclasses.replace(kcfg.data, max_numPts=n))
+
+
+def recorded_calls(fn, names):
+    """fn() with every call of the named functions of ``ops.neighbors``
+    recorded as (args, kwargs): (fn's result, {name: [(args, kwargs)]})."""
+    from buffer_tpu_torch.ops import neighbors
+    calls = {name: [] for name in names}
+    saved = {name: getattr(neighbors, name) for name in names}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(neighbors, name, recorder(name))
+    try:
+        out = fn()
+    finally:
+        for name, f in saved.items():
+            setattr(neighbors, name, f)
+    return out, calls
+
+
+def peak_mb(fn) -> float:
+    """MiB that fn() allocates on the card at its peak, beyond what was
+    held before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def graph_replay(fn):
+    """fn() captured as a CUDA graph after a warm-up call on a side stream,
+    then replayed: (the replay's outputs, the warm-up's)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out, eager
+
+
+def last_modules_path(dev, cfg, kcfg, model, pair, draws, pose_gt, eager,
+                      inter) -> dict:
+    """The modules the port added last, at full width on the card:
+
+    * the dense-LiDAR pair (``dense_cfg``: KITTI with 81920 level-0
+      points; ``lidar_pair`` seed KITTI_SEED, its own draws) through
+      ``register_pair`` and three calls of ``make_register_fn`` (warm-up
+      and capture, two replays): the launches KITTI's less the banded-kNN
+      launches the fallback took, the fallback taking the level-0 kNN and
+      pool 0, every program result bit-equal to the eager one; its FPS
+      (16 CTAs of 320 threads) and banded 1-NN calls bit-equal to their
+      plain versions;
+    * the fallbacks at that shape: each ``radius_knn_banded`` call of the
+      pair scored against the exact dense search (recall > RECALL_KNN);
+      ``nearest_banded`` at Q = S = 81920 (the level-0 points moved by
+      NN_JITTER noise, against themselves) agreeing with the exact 1-NN
+      (``torch.cdist`` in float64) on > AGREE_NN1 of the
+      queries, and bit-equal as a captured CUDA graph's replay; ms by CUDA
+      events and peak memory of each;
+    * ``describe_cloud`` on the main path's pair (both clouds, the pair's
+      keypoints and axes, and without axes): launches DESCRIBE_CLOUD a
+      call, desc and equi within 1e-5 of ``describe_both``'s (``inter``),
+      R within 1e-6, and within the SPT's 2e-5 of its plain-version run;
+    * ``estimate_normals`` of the pair's level-0 clouds against the same in
+      float64 (|cos| > 1 - 1e-3 on >= 99% of the points), with a viewpoint
+      (+-the same normals, each facing it); ``cal_z_axis`` of the first
+      cloud's patches against ``torch.linalg.eigh`` in float64 (>= 99% of
+      the patches with separated eigenvalues within 1e-4);
+    * ``kabsch`` against ``kabsch_quat`` (1e-5) on the pair's inliers under
+      its ground-truth pose ``pose_gt``: the valid source keypoints and
+      their images (1 mm noise), with seeded weights;
+    * the model's weights through ``state_dict_to_variables`` and
+      ``save_variables`` into flax msgpack files, read back by
+      ``load_file`` (equal arrays) and ``load_jax_model``, whose model
+      registers the pair bit-equal to ``eager``.
+
+    Raises on any failed gate; returns the phase's numbers."""
+    import numpy as np
+    import torch
+    from buffer_tpu_torch.compat.from_jax import (load_jax_model,
+                                                  state_dict_to_variables)
+    from buffer_tpu_torch.core import se3
+    from buffer_tpu_torch.core.numerics import full_fp32
+    from buffer_tpu_torch.data.synthetic import lidar_pair
+    from buffer_tpu_torch.kernels import cuda, fps_cuda, knn_cuda, sites
+    from buffer_tpu_torch.models import patch_embedder as pe
+    from buffer_tpu_torch.models.composite import BufferModel
+    from buffer_tpu_torch.ops import neighbors, normals
+    from buffer_tpu_torch.pipeline import registration
+    from buffer_tpu_torch.train import checkpoint
+    from buffer_tpu_torch.utils.profiling import card_line
+    card = card_line()
+    out = {"card": card}
+
+    # ---- the dense-LiDAR pair, eager and through the program ------------
+    path = "KITTI dense"
+    dcfg = dense_cfg(kcfg)
+    st = dcfg.static
+    band = st.knn_band
+    routes = {"l0 kNN": neighbors.knn_route(st.points_l0, band),
+              "l1 kNN": neighbors.knn_route(st.points_l1, band),
+              "l2 kNN": neighbors.knn_route(st.points_l2, band),
+              "pool 0": neighbors.knn_route(st.points_l0, band),
+              "pool 1": neighbors.knn_route(st.points_l1, band),
+              "l0 -> l1": neighbors.nearest_route(st.points_l1, band),
+              "l1 -> l2": neighbors.nearest_route(st.points_l2, band)}
+    n_fallback = sum(r == "fallback" for r in routes.values())
+    dmodel = BufferModel(dcfg, seed=0).to(dev)
+    t0 = time.time()
+    dpair, _ = lidar_pair(dcfg, KITTI_SEED, dev)
+    prep_s = time.time() - t0
+    ddraws = registration.make_draws(
+        dcfg, torch.Generator(device=dev).manual_seed(2), dev)
+    table = PER_PAIR[path]
+    names = ("radius_knn_banded", "nearest_banded", "banded_nn1_cuda")
+
+    def eager_pair():
+        return registration.register_pair(dmodel, dpair, ddraws, device=dev,
+                                          return_intermediates=True)
+
+    eager_ms = []
+    for _ in range(2):                 # the first a warm-up
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (dres, dinter), calls = recorded_calls(eager_pair, names)
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+        check_launches(path, cuda.launch_counts(), table)
+    fell = [(n, tuple(a[0].shape), tuple(a[1].shape)) for n in names[:2]
+            for a, _ in calls[n]]
+    if len(fell) != n_fallback:
+        raise RuntimeError(f"{path}: {len(fell)} fallback calls, routes {routes}")
+    if not torch.isfinite(dres.pose).all() or not dres.kpt_valid.any():
+        raise RuntimeError(f"{path}: non-finite pose or no keypoints")
+    fn = registration.make_register_fn(dmodel, device=dev)
+    program_ms = []
+    for i in range(3):
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(dpair, ddraws)
+        torch.cuda.synchronize()
+        program_ms.append(1e3 * (time.perf_counter() - t0))
+        check_launches(path, cuda.launch_counts(), table)
+        if not results_equal(res, dres):
+            raise RuntimeError(f"{path}: program call {i} differs from "
+                               "register_pair")
+    # the kernels at the shapes this plan gives them
+    K = dcfg.point.num_keypts
+    elig = dpair.sds_mask & (dinter["score"] > dcfg.point.keypts_th)
+    ik = fps_cuda.fps_cuda_batched(dpair.sds, elig, K)
+    if not (torch.equal(ik, fps_cuda.fps_plain(dpair.sds, elig, K))
+            and torch.equal(ik, dinter["kidx"])):
+        raise RuntimeError(f"{path}: fps kernel, plain version and the "
+                           "pair's keypoints differ")
+    fps_dense = {"N": dpair.sds.shape[1], "plan": fps_cuda.fps_plan(
+        dpair.sds.shape[1]), "ms": cuda_ms(
+        lambda: fps_cuda.fps_cuda_batched(dpair.sds, elig, K), 5)}
+    for a, kw in calls["banded_nn1_cuda"]:
+        if not all(torch.equal(x, y) for x, y in zip(
+                knn_cuda.banded_nn1_cuda(*a, **kw),
+                knn_cuda.banded_nn1_plain(*a, **kw))):
+            raise RuntimeError(f"{path}: bnn1 kernel and plain differ")
+    out["dense_pair"] = {
+        "path": path, "points_l0": st.points_l0, "routes": routes,
+        "valid_points": {f: [int(m.sum()) for m in getattr(dpair, f)]
+                         for f in ("raw_mask", "sds_mask", "lvl1_mask",
+                                   "lvl2_mask")},
+        "host_prep_s": prep_s, "fallback_calls": fell,
+        "launches": table, "kitti_launches": PER_PAIR["KITTI"],
+        "fallback_took": {"bknn": PER_PAIR["KITTI"]["bknn"] - table["bknn"]},
+        "eager_ms": eager_ms, "program_ms": program_ms,
+        "ms_per_pair": program_ms[-1], "program_bit_equal": True,
+        "num_mutual": int(dres.num_mutual), "fps": fps_dense,
+        "bnn1_calls": [[*a[0].shape[:2], a[1].shape[1]]
+                       for a, _ in calls["banded_nn1_cuda"]]}
+    print(json.dumps({"last_modules": out["dense_pair"], "card": card}))
+
+    # ---- the fallbacks at full shape -------------------------------------
+    r0 = dcfg.data.voxel_size_0 * dcfg.point.conv_radius
+    rows = []
+    with torch.no_grad(), full_fp32():
+        for a, kw in calls["radius_knn_banded"]:
+            q, s, sv, k, radius, b = a
+            qv = kw["query_valid"]
+            run = lambda: neighbors.radius_knn_banded(*a, **kw)
+            got = run()
+            exact = lambda: neighbors.radius_knn(q, s, sv, k, radius or r0)
+            score = knn_recall(got, exact(), qv, None if radius else r0 * r0)
+            rows.append({"fn": "radius_knn_banded", "B": q.shape[0],
+                         "Q": q.shape[1], "S": s.shape[1], "k": k,
+                         "radius": radius, "band": b, "recall": score,
+                         "ms": cuda_ms(run, 5), "peak_mb": peak_mb(run),
+                         "exact_ms": cuda_ms(exact, 1, warmup=0)})
+        s, sv = dpair.sds, dpair.sds_mask
+        noise = torch.randn(s.shape, generator=torch.Generator(
+            device=dev).manual_seed(3), device=dev)
+        q = torch.where(sv[..., None], s + NN_JITTER * noise, s)
+        if neighbors.nearest_route(s.shape[1], band) != "fallback":
+            raise RuntimeError("nearest: the dense level 0 is not a fallback")
+        run = lambda: neighbors.nearest(q, s, sv, band=band, query_valid=sv)
+        d, i = run()
+        far = torch.where(sv[..., None], s, torch.full_like(s, 1e6)).double()
+        exact = lambda: [torch.cdist(q[:, c:c + 4096].double(), far).min(dim=2)
+                         for c in range(0, q.shape[1], 4096)]
+        ie = torch.cat([m.indices for m in exact()], dim=1)
+        agree = float((i == ie)[sv].float().mean())
+        (dg, ig), _ = graph_replay(lambda: neighbors.nearest_banded(
+            q, s, sv, band, query_valid=sv))
+        if not (torch.equal(dg, d) and torch.equal(ig, i)):
+            raise RuntimeError("nearest_banded: a graph replay differs")
+        rows.append({"fn": "nearest_banded", "B": q.shape[0], "Q": q.shape[1],
+                     "S": s.shape[1], "band": band, "agreement": agree,
+                     "ms": cuda_ms(run, 5), "peak_mb": peak_mb(run),
+                     "exact_ms": cuda_ms(exact, 1, warmup=0),
+                     "graph_bit_equal": True})
+    for row in rows:
+        print(json.dumps({"fallback": row, "card": card}))
+    if (min(r["recall"] for r in rows if "recall" in r) <= RECALL_KNN
+            or rows[-1]["agreement"] <= AGREE_NN1):
+        raise RuntimeError(f"fallbacks below their bars: {rows}")
+    out["fallbacks"] = rows
+
+    # ---- describe_cloud on the main path's pair --------------------------
+    described = []
+    for b, side in ((0, "s"), (1, "t")):
+        args = (model, cfg, draws.ball_prio[b], draws.spt_prio, pair.raw[b],
+                pair.raw_mask[b], inter["kpts"][b])
+        before = cuda.launch_counts()
+        d, e, R = registration.describe_cloud(*args, inter["kaxes"][b])
+        after = cuda.launch_counts()
+        check_launches("describe_cloud", {k: after[k] - before[k]
+                                          for k in after}, DESCRIBE_CLOUD)
+        errs = {"desc": float((d - inter[side + "_des"]).abs().max()),
+                "equi": float((e - inter[side + "_equi"]).abs().max()),
+                "R": float((R - inter[side + "_R"]).abs().max())}
+        before = cuda.launch_counts()
+        with sites.plain_versions():
+            dp, ep, _ = registration.describe_cloud(*args, inter["kaxes"][b])
+        if cuda.launch_counts() != before:
+            raise RuntimeError("describe_cloud: a kernel ran on the plain path")
+        errs["plain"] = max(float((d - dp).abs().max()),
+                            float((e - ep).abs().max()))
+        before = cuda.launch_counts()
+        dn, en, _ = registration.describe_cloud(*args)
+        after = cuda.launch_counts()
+        check_launches("describe_cloud", {k: after[k] - before[k]
+                                          for k in after}, DESCRIBE_CLOUD)
+        if not (torch.isfinite(dn).all() and torch.isfinite(en).all()):
+            raise RuntimeError("describe_cloud without axes: not finite")
+        if (errs["desc"] > 1e-5 or errs["equi"] > 1e-5 or errs["R"] > 1e-6
+                or errs["plain"] > 2e-5):
+            raise RuntimeError(f"describe_cloud ({side}): {errs}")
+        described.append(dict(errs, cloud=side, ms=cuda_ms(
+            lambda: registration.describe_cloud(*args, inter["kaxes"][b]), 5)))
+    out["describe_cloud"] = described
+    print(json.dumps({"describe_cloud": described, "card": card}))
+
+    # ---- normals, cal_z_axis, kabsch -------------------------------------
+    with torch.no_grad(), full_fp32():
+        pts, msk = pair.sds, pair.sds_mask
+        n32 = normals.estimate_normals(pts, msk)
+        n64 = normals.estimate_normals(pts.double(), msk)
+        cos = (n32.double() * n64).sum(-1).abs()[msk]
+        vp = torch.tensor([0.0, 0.0, 10.0], device=dev)
+        nv = normals.estimate_normals(pts, msk, viewpoint=vp)
+        same = ((nv == n32) | (nv == -n32)).all(-1)[msk].all()
+        facing = bool(((nv * (vp - pts)).sum(-1)[msk] >= 0).all())
+        p = cfg.patch
+        patches = pe.extract_patches(pair.raw[:1], pair.raw_mask[:1],
+                                     draws.ball_prio[:1], inter["kpts"][:1],
+                                     p.des_r, p.num_points_per_patch)[0]
+        delta, ref = patches - patches[:, -1:], patches[:, -1]
+        z = normals.cal_z_axis(delta, ref)
+        lam, vec = torch.linalg.eigh(delta.double().transpose(-1, -2)
+                                     @ delta.double())
+        z64 = vec[..., 0]
+        z64 = torch.where((torch.sum(-z64 * ref.double(), -1) < 0)[:, None],
+                          -z64, z64)
+        sep = (lam[:, 1] - lam[:, 0]) > 1e-3 * lam[:, 2]
+        zdot = (z.double() * z64).sum(-1)[sep]
+        # the source keypoints and their images under the ground-truth
+        # pose (1 mm noise), weighted by seeded uniforms where valid
+        gen = torch.Generator(device=dev).manual_seed(4)
+        A = inter["kpts"][0][None]
+        B = se3.transform(A, pose_gt.to(A)) + 1e-3 * torch.randn(
+            A.shape, generator=gen, device=dev)
+        w = inter["kvalid"][0].to(A.dtype)[None] * torch.rand(
+            A.shape[:2], generator=gen, device=dev)
+        T_svd, T_quat = se3.kabsch(A, B, w), se3.kabsch_quat(A, B, w)
+    geometry = {
+        "normals_cos_share": float((cos > 1 - 1e-3).float().mean()),
+        "normals_viewpoint_same": bool(same), "normals_facing": facing,
+        "normals_ms": cuda_ms(lambda: normals.estimate_normals(pts, msk), 3),
+        "cal_z_axis_share": float((zdot > 1 - 1e-4).float().mean()),
+        "cal_z_axis_separated": int(sep.sum()),
+        "kabsch_points": int((w > 0).sum()),
+        "kabsch_vs_gt": float((T_svd[0] - pose_gt.to(A)).abs().max()),
+        "kabsch_vs_quat": float((T_svd - T_quat).abs().max())}
+    print(json.dumps({"geometry": geometry, "card": card}))
+    if (geometry["normals_cos_share"] < 0.99 or not same or not facing
+            or geometry["cal_z_axis_share"] < 0.99
+            or geometry["kabsch_vs_quat"] > 1e-5):
+        raise RuntimeError(f"last modules: geometry gates failed: {geometry}")
+    out["geometry"] = geometry
+
+    # ---- the JAX trainer's msgpack checkpoints ---------------------------
+    mdir = cuda.BUILD_DIR / "last_modules"
+    shutil.rmtree(mdir, ignore_errors=True)
+    variables = state_dict_to_variables(model.state_dict())
+    paths = {s: str(mdir / s / "best.msgpack") for s in STAGES}
+    for f in paths.values():
+        checkpoint.save_variables(variables, f)
+    back = checkpoint.load_file(paths["Desc"])
+    flat = lambda t, pre="": ([(pre, t)] if not isinstance(t, dict) else
+                              [x for k, v in t.items()
+                               for x in flat(v, f"{pre}/{k}")])
+    if [k for k, _ in flat(back)] != [k for k, _ in flat(variables)] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(flat(back),
+                                                           flat(variables))):
+        raise RuntimeError("msgpack: load_file differs from save_variables")
+    loaded = load_jax_model(cfg, paths, dev)
+    res = registration.register_pair(loaded, pair, draws, device=dev)
+    if not results_equal(res, eager):
+        raise RuntimeError("msgpack: the loaded model registers the pair "
+                           "differently")
+    out["msgpack"] = {"files": len(paths), "bytes": os.path.getsize(
+        paths["Desc"]), "register_bit_equal": True}
+    print(json.dumps({"msgpack": out["msgpack"]}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2821,6 +3200,12 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         raise RuntimeError("farthest_point_sample: wrong valid count")
 
     lap("recorded runs and fps_single")
+
+    # ---- the last modules: fallbacks, describe_cloud, normals, se3, msgpack
+    last = last_modules_path(dev, cfg, kcfg, model, pairs[0], draws[0],
+                             torch.as_tensor(poses_gt[0], device=dev), res_k,
+                             inter_k)
+    lap("last modules")
 
     # ---- stage-sequential training at full width -----------------------
     from buffer_tpu_torch.pipeline.train_forward import make_train_draws
@@ -2980,7 +3365,8 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
           ms_kitti=cuda_ms(
               lambda: fps_cuda.fps_cuda_batched(ksds, kelig, KK_fps), 5),
           kitti_shape=list(kelig.shape), plan_kitti=fps_cuda.fps_plan(
-              kelig.shape[1]), ptxas=ptxas["fps"])
+              kelig.shape[1]), ms_dense=last["dense_pair"]["fps"]["ms"],
+          plan_dense=last["dense_pair"]["fps"]["plan"], ptxas=ptxas["fps"])
 
     # 3. ball sampling of both clouds' patches: timed around the wrapper
     # and around the C launch alone (pack and select, without the wrapper's
@@ -3175,7 +3561,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "paths": [main_line, kitti_line, band0_line, sampled_line],
             "programs": programs, "program_variants": variants,
             "unrolled": unrolled,
-            "bench": bench,
+            "bench": bench, "last_modules": last,
             "profiles": profiles,
             "device_levels": levels, "train_entry": train_entry,
             "presets": presets, "train_then_register": ttr,

@@ -179,18 +179,26 @@ def test_dispatch_at_the_presets(preset, dense):
 
 
 def test_dispatch_raises_for_unported_fallback():
-    # a restricting band on a support past the 16-bit rank range, and on
-    # one with fewer than 16 grid rows: the reference takes its XLA
-    # fallbacks radius_knn_banded / nearest_banded there
+    """(Named when these shapes raised.)  A restricting band on a support
+    past the 16-bit rank range, and on one with fewer than 16 grid rows,
+    routes to the fallbacks ``radius_knn_banded`` / ``nearest_banded``, as
+    the reference dispatches to its XLA functions there; no support size
+    raises."""
     for S, band in ((70000, 4096), (1500, 512)):
         assert not knn_cuda.banded_supported(S)
-        with pytest.raises(NotImplementedError, match="radius_knn_banded"):
-            neighbors.knn_route(S, band)
-        with pytest.raises(NotImplementedError, match="nearest_banded"):
-            neighbors.nearest_route(S, band)
+        assert neighbors.knn_route(S, band) == "fallback"
+        assert neighbors.nearest_route(S, band) == "fallback"
+    for S in (1, 1500, 65536, 70000, 1 << 20):
+        for band in (None, 0, 64, 4096):
+            assert neighbors.knn_route(S, band) in ("banded", "fallback",
+                                                    "dense")
+            assert neighbors.nearest_route(S, band) in ("banded", "fallback",
+                                                        "exact")
     # a band that does not restrict keeps the exact searches
     assert neighbors.nearest_route(1500, 1024) == "exact"
     assert neighbors.knn_route(1500, 1024) == "dense"
+    assert neighbors.nearest_route(70000, 35000) == "exact"
+    assert neighbors.knn_route(70000, 35000) == "dense"
 
 
 @pytest.mark.parametrize("n_elig", [None, 30, 0])

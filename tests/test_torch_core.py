@@ -140,8 +140,16 @@ def test_radius_knn_matches(radius):
         # random points: no distance ties, so the sorted lists are equal
         np.testing.assert_array_equal(i[b].numpy(), np.asarray(ij))
         np.testing.assert_allclose(d[b].numpy(), np.asarray(dj), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        neighbors.radius_knn(_t(q), _t(s), _t(valid), k, radius, band=64)
+    # a restricting band on a support the banded kernel cannot take (300
+    # points, under 16 grid rows) runs the fallback radius_knn_banded, as
+    # JAX's radius_knn does: the same valid count for every query
+    assert neighbors.knn_route(S, 64) == "fallback"
+    _, _, vb = neighbors.radius_knn(_t(q), _t(s), _t(valid), k, radius, band=64)
+    for b in range(B):
+        _, _, vj = jnb.radius_knn(jnp.asarray(q[b]), jnp.asarray(s[b]),
+                                  jnp.asarray(valid[b]), k, radius, band=64)
+        np.testing.assert_array_equal(vb[b].sum(-1).numpy(),
+                                      np.asarray(vj).sum(-1))
     # a band covering the support is ignored, as in the reference
     neighbors.radius_knn(_t(q), _t(s), _t(valid), k, radius, band=S)
 
