@@ -1,8 +1,9 @@
 """Synthetic fragment pairs for smoke tests, gates and measurements:
-bench.py's 3DMatch pair (:func:`bench_pair`), 3DMatch-like surface pairs
-of any seed (:func:`surface_pair`: bench.py's surface, a rotation of its
-own), a 3DMatch-like room pair and a KITTI-like LiDAR pair (numpy copies of
-the generators of ``buffer_tpu/data/synthetic.py``, same draws in the same
+bench.py's 3DMatch pairs (:func:`bench_pair`, any seed: the bench's and
+the measurement scripts' pair), 3DMatch-like surface pairs of any seed
+(:func:`surface_pair`: bench.py's surface, a rotation of its own), a
+3DMatch-like room pair and a KITTI-like LiDAR pair (numpy copies of the
+generators of ``buffer_tpu/data/synthetic.py``, same draws in the same
 order; ``lidar_pair(cfg, 13)`` is bench.py's KITTI pair), and
 :func:`icp_check_gt`, an independent check of a pair's ground truth."""
 
@@ -55,13 +56,14 @@ def _moved_pair(cfg: Config, raw, R: torch.Tensor, rs, device):
     return inputs, T
 
 
-def bench_pair(cfg: Config, device=None):
-    """bench.py's 3DMatch pair (``bench.synthetic_pair(cfg, seed=0)``,
+def bench_pair(cfg: Config, device=None, seed: int = 0):
+    """bench.py's 3DMatch pair (``bench.synthetic_pair(cfg, seed)``,
     bench.py:34-63), array for array: :func:`wavy_surface` from
-    ``RandomState(0)``, the second cloud moved by BENCH_ROTATION and
-    t = (0.4, -0.2, 0.3), then ``prepare_pair`` on the same stream.
-    Returns (PairInputs on ``device``, T [4, 4] float32)."""
-    rs = np.random.RandomState(0)
+    ``RandomState(seed)``, the second cloud moved by BENCH_ROTATION and
+    t = (0.4, -0.2, 0.3) whatever the seed (bench.py draws ``PRNGKey(11)``
+    for every seed), then ``prepare_pair`` on the same stream.  Returns
+    (PairInputs on ``device``, T [4, 4] float32)."""
+    rs = np.random.RandomState(seed)
     raw = _surface_raw(cfg, rs)
     return _moved_pair(cfg, raw, torch.from_numpy(BENCH_ROTATION), rs, device)
 

@@ -223,14 +223,12 @@ def topk_keys_plain(keys: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat(out, -1)
 
 
-def banded_knn_plain(query: torch.Tensor, support: torch.Tensor,
-                     support_valid: torch.Tensor, query_valid: torch.Tensor,
-                     k: int, radius: Optional[float],
-                     win_rows: int = KNN_WIN_ROWS):
-    """Banded radius-kNN over B clouds: query [B, Q, 3], support [B, S, 3],
-    masks [B, S] and [B, Q] -> (d2 [B, Q, k] truncated, idx [B, Q, k]
-    int32, valid [B, Q, k]) in (d2, rank) order.  Slots that are not
-    valid may hold any index."""
+def _stage_a(query: torch.Tensor, support: torch.Tensor,
+             support_valid: torch.Tensor, query_valid: torch.Tensor,
+             radius: Optional[float], win_rows: int):
+    """Stage A of the banded kNN a chunk of query tiles at a time: yields
+    (first query of the chunk, its two candidate fields [B, n, 128] int32:
+    each support column's best and second-best window row, packed)."""
     B, Q, _ = query.shape
     S = support.shape[1]
     NR, LW = window_rows(S, win_rows)
@@ -239,7 +237,6 @@ def banded_knn_plain(query: torch.Tensor, support: torch.Tensor,
     r2 = (None if radius is None else
           torch.full((), float(radius) ** 2, dtype=torch.float32,
                      device=query.device))
-    keys = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
     n_tiles = r0.shape[1]
     for t0 in range(0, n_tiles, TILE_CHUNK):
         t1 = min(t0 + TILE_CHUNK, n_tiles)
@@ -249,11 +246,39 @@ def banded_knn_plain(query: torch.Tensor, support: torch.Tensor,
                           key)
         m2 = key.amin(3)
         r0c = r0[:, t0:t1]
-        cand = torch.cat([_candidate(m1, r0c, r2), _candidate(m2, r0c, r2)], -1)
         n = min(Q, t1 * Q_TILE) - t0 * Q_TILE
-        keys[:, t0 * Q_TILE:t0 * Q_TILE + n] = topk_keys_plain(
-            cand.reshape(B, -1, 2 * NSEG)[:, :n], k)
-    d, idx, valid = decode(keys, S)
+        yield t0 * Q_TILE, tuple(
+            _candidate(m, r0c, r2).reshape(B, -1, NSEG)[:, :n] for m in (m1, m2))
+
+
+def banded_candidates(query: torch.Tensor, support: torch.Tensor,
+                      support_valid: torch.Tensor, query_valid: torch.Tensor,
+                      radius: Optional[float], win_rows: int = KNN_WIN_ROWS
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two candidate fields that stage A hands stage B
+    (``banded_knn_tpu``'s ``k1, k2``, ``topk_packed_tpu``'s inputs), each
+    [B, Q, 128] int32 packed keys; the k smallest of both are the banded
+    kNN's keys."""
+    parts = [c for _, c in _stage_a(query, support, support_valid, query_valid,
+                                    radius, win_rows)]
+    return tuple(torch.cat([c[i] for c in parts], 1) for i in range(2))
+
+
+def banded_knn_plain(query: torch.Tensor, support: torch.Tensor,
+                     support_valid: torch.Tensor, query_valid: torch.Tensor,
+                     k: int, radius: Optional[float],
+                     win_rows: int = KNN_WIN_ROWS):
+    """Banded radius-kNN over B clouds: query [B, Q, 3], support [B, S, 3],
+    masks [B, S] and [B, Q] -> (d2 [B, Q, k] truncated, idx [B, Q, k]
+    int32, valid [B, Q, k]) in (d2, rank) order.  Slots that are not
+    valid may hold any index."""
+    B, Q, _ = query.shape
+    keys = torch.empty((B, Q, k), dtype=torch.int32, device=query.device)
+    for q0, (c1, c2) in _stage_a(query, support, support_valid, query_valid,
+                                 radius, win_rows):
+        keys[:, q0:q0 + c1.shape[1]] = topk_keys_plain(torch.cat([c1, c2], -1),
+                                                       k)
+    d, idx, valid = decode(keys, support.shape[1])
     return d, idx.to(torch.int32), valid
 
 

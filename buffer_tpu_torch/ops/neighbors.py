@@ -23,8 +23,9 @@
   fp32 distances and an exact ``torch.topk`` / ``torch.min``.
 
 All take a batch of clouds [B, ...] and validity masks.  The dispatch is
-the TPU path's own (``buffer_tpu/ops/neighbors.py:98-120, 402-411``):
-:func:`knn_route` and :func:`nearest_route` name the branch a shape takes.
+the TPU path's own (``buffer_tpu/ops/neighbors.py:98-126, 402-411``):
+:func:`knn_route` and :func:`nearest_route` name the branch a shape takes;
+a search without ``query_valid`` takes no banded kernel, as on the TPU.
 """
 
 from __future__ import annotations
@@ -47,13 +48,17 @@ BIG = 1e9
 FIELD_ELEMS = 1 << 25
 
 
-def knn_route(support_size: int, band: Optional[int]) -> str:
+def knn_route(support_size: int, band: Optional[int],
+              masked: bool = True) -> str:
     """"banded" (the banded kernel; the band restricts the search, or its
     window covers the whole grid), "fallback" (:func:`radius_knn_banded`: a
-    restricting band on a support the kernel cannot take) or "dense" (the
-    exact search)."""
+    restricting band on a support the kernel cannot take, or a search
+    without query masks) or "dense" (the exact search).  ``masked``: the
+    caller passes ``query_valid``; the kernel's window follows the ratio of
+    the valid counts, so without the masks the TPU path never takes it
+    (``buffer_tpu/ops/neighbors.py:98``)."""
     S = support_size
-    if band and banded_supported(S):
+    if masked and band and banded_supported(S):
         _, covers = banded_win_rows(S, band)
         if 2 * band < S or covers:
             return "banded"
@@ -62,21 +67,16 @@ def knn_route(support_size: int, band: Optional[int]) -> str:
     return "dense"
 
 
-def nearest_route(support_size: int, band: Optional[int]) -> str:
-    """"banded" (the banded 1-NN kernel) when the band restricts the search
-    and the kernel takes the support, "fallback" (:func:`nearest_banded`)
-    when it restricts and the kernel cannot take it, else "exact"."""
+def nearest_route(support_size: int, band: Optional[int],
+                  masked: bool = True) -> str:
+    """"banded" (the banded 1-NN kernel) when the band restricts the search,
+    the kernel takes the support and the caller passes ``query_valid``
+    (``masked``), "fallback" (:func:`nearest_banded`) when it restricts
+    otherwise, else "exact"."""
     S = support_size
     if band and 2 * band < S:
-        return "banded" if banded_supported(S) else "fallback"
+        return "banded" if masked and banded_supported(S) else "fallback"
     return "exact"
-
-
-def _query_mask(query: torch.Tensor, query_valid: Optional[torch.Tensor]):
-    if query_valid is None:
-        raise ValueError("the banded search needs query_valid: its window "
-                         "follows the ratio of the valid counts")
-    return query_valid
 
 
 def radius_knn(query: torch.Tensor, support: torch.Tensor,
@@ -89,7 +89,8 @@ def radius_knn(query: torch.Tensor, support: torch.Tensor,
     ``radius``.
 
     query [B, Q, 3], support [B, S, 3], support_valid [B, S], query_valid
-    [B, Q] (needed on the banded branch) -> (d2 [B, Q, k] ascending,
+    [B, Q] (the banded kernel's window follows it; without it a
+    restricting band takes the fallback) -> (d2 [B, Q, k] ascending,
     idx [B, Q, k] int32, valid [B, Q, k]).  The banded branch returns the
     truncated distances of its packed keys (low 16 mantissa bits clear) and
     may hold any index in slots that are not valid; the dense and fallback
@@ -97,11 +98,11 @@ def radius_knn(query: torch.Tensor, support: torch.Tensor,
     reference)."""
     B, Q, _ = query.shape
     S = support.shape[1]
-    route = knn_route(S, band)
+    route = knn_route(S, band, query_valid is not None)
     if route == "banded":
         wr, _ = banded_win_rows(S, band)
-        return banded_knn_cuda(query, support, support_valid,
-                               _query_mask(query, query_valid), k, radius, wr)
+        return banded_knn_cuda(query, support, support_valid, query_valid, k,
+                               radius, wr)
     if route == "fallback":
         return radius_knn_banded(query, support, support_valid, k, radius,
                                  band, query_valid=query_valid)
@@ -134,12 +135,12 @@ def nearest(query: torch.Tensor, support: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """1-NN: query [B, Q, 3] over support [B, S, 3] -> (d2 [B, Q],
     idx [B, Q] int32).  Replaces KNN_CUDA(k=1) (models/BUFFER.py:335-359).
-    The banded branch searches +-1024 ranks and returns truncated d2; the
-    fallback searches the window of :func:`nearest_banded`."""
-    route = nearest_route(support.shape[1], band)
+    The banded branch (with ``query_valid``) searches +-1024 ranks and
+    returns truncated d2; the fallback searches the window of
+    :func:`nearest_banded`."""
+    route = nearest_route(support.shape[1], band, query_valid is not None)
     if route == "banded":
-        return banded_nn1_cuda(query, support, support_valid,
-                               _query_mask(query, query_valid))
+        return banded_nn1_cuda(query, support, support_valid, query_valid)
     if route == "fallback":
         return nearest_banded(query, support, support_valid, band,
                               query_valid=query_valid)

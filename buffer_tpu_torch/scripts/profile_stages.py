@@ -4,10 +4,10 @@ the repository's ``scripts/profile_stages.py``):
     python -m buffer_tpu_torch.scripts.profile_stages --config {3DMatch,KITTI}
         [--torch-weights DIR]
 
-The pair is ``chip_smoke.py``'s first: bench.py's wavy surface with a
-rotation of its own (:func:`~buffer_tpu_torch.data.synthetic.surface_pair`,
-seed 0; bench.py's pair is ``data.synthetic.bench_pair``) for 3DMatch, :func:`~buffer_tpu_torch.data.synthetic.lidar_pair` (seed 13) for
-KITTI, at the preset's full static plan, with draws from a generator
+The pair is the JAX script's: bench.py's pair
+(:func:`~buffer_tpu_torch.data.synthetic.bench_pair`, seed 0) for 3DMatch,
+:func:`~buffer_tpu_torch.data.synthetic.lidar_pair` (seed 13) for KITTI,
+at the preset's full static plan, with draws from a generator
 seeded 0 and seeded random weights (``BufferModel(cfg, seed=0)``) or a
 reference snapshot (``--torch-weights``).  Everything runs under
 ``full_fp32()``.
@@ -61,13 +61,15 @@ def budget_name(boost: bool) -> str:
 
 def profile_pair(cfg, dev):
     """(PairInputs, ground truth T [4, 4], draws) of the profiled pair of
-    ``cfg``'s dataset on ``dev``."""
-    from buffer_tpu_torch.data.synthetic import lidar_pair, surface_pair
+    ``cfg``'s dataset on ``dev``: bench.py's pairs, as the JAX scripts
+    take them (``bench_pair`` seed 0, ``lidar_pair`` seed 13), with draws
+    from a generator seeded 0."""
+    from buffer_tpu_torch.data.synthetic import bench_pair, lidar_pair
     from buffer_tpu_torch.pipeline.registration import make_draws
     if cfg.data.dataset == "KITTI":
         inputs, T = lidar_pair(cfg, 13, dev)
     else:
-        inputs, T = surface_pair(cfg, 0, dev)
+        inputs, T = bench_pair(cfg, dev)
     draws = make_draws(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     return inputs, T, draws
 

@@ -6,7 +6,7 @@
 
 For each stage, a fresh ``BufferModel(cfg, seed=0)``, ``make_optimizer``'s
 Adam and the compiled step (``train.trainer.make_train_step``: one CUDA
-graph) on ``profile_stages``' pair (``surface_pair``, seed 0) with its
+graph) on ``profile_stages``' pair (``bench_pair``, seed 0) with its
 ground-truth pose and draws from a generator seeded 0: the first call (the
 eager step, then the capture), then the replay's device ms by
 :func:`~buffer_tpu_torch.utils.profiling.replay_time` (the same

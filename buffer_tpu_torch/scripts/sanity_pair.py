@@ -4,9 +4,10 @@ repository's ``scripts/sanity_pair.py``):
     python -m buffer_tpu_torch.scripts.sanity_pair [--torch-weights DIR]
         [--tiny --device cpu]
 
-Registers ``chip_smoke.py``'s 3DMatch pairs (``data.synthetic.
-surface_pair``: bench.py's wavy surface, seeds 0, 1 and 2, each with draws
-from a generator seeded by its seed) through the compiled program (``make_register_fn``) with a reference snapshot
+Registers the JAX script's 3DMatch pairs (``data.synthetic.bench_pair``:
+``bench.synthetic_pair`` of seeds 0, 1 and 2, each with draws from a
+generator seeded by its seed) through the compiled program
+(``make_register_fn``) with a reference snapshot
 (``--torch-weights``: ``<stage>/best.pth``, through
 ``compat.torch_convert``) or, without one, seeded random weights, and says
 which.  Prints one JSON line: each pair's RTE (m), RRE (degrees), mutual
@@ -28,13 +29,13 @@ SEEDS = (0, 1, 2)
 def run(cfg, model, dev) -> list:
     """Each seed's pair registered by ``model`` on ``dev``: RTE, RRE and
     the counts."""
-    from buffer_tpu_torch.data.synthetic import surface_pair
+    from buffer_tpu_torch.data.synthetic import bench_pair
     from buffer_tpu_torch.eval.metrics import rte_rre
     from buffer_tpu_torch.pipeline.registration import make_draws, make_register_fn
     fn = make_register_fn(model, device=dev)
     out = []
     for seed in SEEDS:
-        inputs, T = surface_pair(cfg, seed, dev)
+        inputs, T = bench_pair(cfg, dev, seed)
         draws = make_draws(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         res = fn(inputs, draws)
         rte, rre = rte_rre(res.pose.cpu().double().numpy(), T)

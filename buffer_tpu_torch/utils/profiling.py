@@ -7,10 +7,10 @@ step, on the card.
 
 Runs ``register_pair`` (the preset at full width with its own
 ``knn_band`` unless ``--knn-band`` says otherwise, seeded random weights;
-3DMatch on :func:`~buffer_tpu_torch.data.synthetic.surface_pair`, KITTI on
-:func:`~buffer_tpu_torch.data.synthetic.lidar_pair`; with
-``--device-levels`` without its host-built pyramid levels, so that the
-pyramid voxel-subsamples them on the card) once to warm up,
+3DMatch on :func:`~buffer_tpu_torch.data.synthetic.bench_pair`, KITTI on
+:func:`~buffer_tpu_torch.data.synthetic.lidar_pair` seed 13, bench.py's
+pairs; with ``--device-levels`` without its host-built pyramid levels,
+so that the pyramid voxel-subsamples them on the card) once to warm up,
 then ``--pairs`` more without and ``--pairs`` more under
 ``torch.profiler``.  Prints one JSON line: the wall time per pair without
 and with the profiler, the device time summed over CUDA kernels (busy
@@ -318,7 +318,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from buffer_tpu_torch.config import make_cfg
-    from buffer_tpu_torch.data.synthetic import lidar_pair, surface_pair
+    from buffer_tpu_torch.data.synthetic import bench_pair, lidar_pair
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.models.composite import BufferModel
     from buffer_tpu_torch.pipeline.registration import (StageTimer, make_draws,
@@ -349,7 +349,7 @@ def main() -> int:
     if args.config == "KITTI":
         inputs, T = lidar_pair(cfg, 13, dev)
     else:
-        inputs, T = surface_pair(cfg, 0, dev)
+        inputs, T = bench_pair(cfg, dev)
     if args.device_levels:
         inputs = inputs._replace(lvl1=None, lvl1_mask=None, lvl2=None,
                                  lvl2_mask=None)

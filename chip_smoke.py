@@ -360,8 +360,8 @@ UNROLL = {"3DMatch": (1, 2, 3), "KITTI": (1, 2)}
 # after utils.profiling.settle() too (a train-program replay showed 3 of
 # the 4 banded-kNN launches its counter saw), and in some processes the
 # same first records of every window (hence utils.profiling.open_window's
-# spin kernels): a profile that shows fewer kernels than the counters is
-# taken again, up to this many times
+# spin kernels and profile_call's warm-up call): a profile that shows
+# fewer kernels than the counters is taken again, up to this many times
 PROFILE_ATTEMPTS = 3
 # "last modules": the dense-LiDAR plan, the KITTI preset with 81920
 # level-0 points (the loader's cap raised to match), past the banded
@@ -378,6 +378,8 @@ NN_JITTER = 0.05
 DISPATCH_APIS = (r"(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|"
                  r"cuLaunchKernelEx|cudaGraphLaunch|cudaMemcpyAsync|"
                  r"cudaMemsetAsync)(_v\d+)?")
+# profile_call's two spans
+PROFILE_SPANS = ("warm-up call", "profiled call")
 
 
 def sm_clock_hz() -> float:
@@ -633,6 +635,34 @@ def banded_entries(calls, cfg, time_plain: bool = True):
     for row in rows:
         print(json.dumps({"banded_call": row}))
     return sums, rows
+
+
+def topk_library(calls, cfg) -> dict:
+    """Stage B's library time (``topk_packed_tpu``, which runs inside the
+    bknn launch and has no time of its own there): at the pair's level-0
+    banded kNN call (Q = S = points_l0, k = max(normal_knn,
+    neighbor_caps[0])), one ``torch.topk(torch.cat([k1, k2], -1), k,
+    largest=False)`` over the two candidate fields of stage A
+    (``knn_cuda.banded_candidates``), timed by CUDA events after one
+    warm-up; its keys must equal the plain stage B's (``topk_keys_plain``)
+    in every slot that holds a neighbour (the rest are knock-out values)."""
+    import torch
+    from buffer_tpu_torch.kernels import knn_cuda
+    st = cfg.static
+    k = max(st.normal_knn, st.neighbor_caps[0])
+    q, s, sv, qv, _, radius, wr = next(
+        a for a in calls if a[0].shape[1] == a[1].shape[1] == st.points_l0
+        and a[4] == k)
+    k1, k2 = knn_cuda.banded_candidates(q, s, sv, qv, radius, wr)
+    top = lambda: torch.topk(torch.cat([k1, k2], -1), k, dim=-1,
+                             largest=False)
+    plain = knn_cuda.topk_keys_plain(torch.cat([k1, k2], -1), k)
+    held = knn_cuda.decode(plain, s.shape[1])[2]
+    if not torch.equal(top().values[held], plain[held]):
+        raise RuntimeError("bknn stage B: torch.topk and topk_keys_plain "
+                           "differ")
+    return {"ms_topk_library": cuda_ms(top, 20),
+            "topk_library_call": [*k1.shape[:2], 2 * k1.shape[2], k]}
 
 
 def cdist_nn(q, s, valid, chunk=4096):
@@ -1029,7 +1059,7 @@ def train_program_path(path: str, dev, cfg, batches, gen, save_dir: str) -> dict
         (_, seen, n_kernels, dispatches, kernel_ms), _, attempts = \
             profiled_launches(f"{path} {stage}",
                               lambda: trainer.step(batches[0], draws[0]))
-        *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
+        _, _, eager_kernels, eager_dispatches, eager_kernel_ms, _ = profile_call(
             lambda: tr.train_step(twin, opt, stage, batches[0], draws[0],
                                   margin, dev))
         capture_s = program.capture_s
@@ -1766,36 +1796,77 @@ def results_equal(got, want) -> bool:
 
 
 def profile_call(fn):
-    """One call of ``fn`` under ``torch.profiler``, its window opened by
-    ``utils.profiling.open_window`` (spin kernels that take the records
-    the profiler loses first, then ``settle``) and closed ``settle`` after
-    the card is idle (the profiler drops records it dates outside its
-    window): (its output, kernel count by __global__ name of GLOBALS, all
-    kernels launched, host dispatches within the call, the kernels' device
-    ms)."""
+    """One call of ``fn`` under ``torch.profiler``: the window opened by
+    ``utils.profiling.open_window``, a warm-up call of ``fn`` and, right
+    after it, the profiled call, each in a ``record_function`` span, and
+    the window closed ``settle`` after the card is idle.  A span's device
+    events are those whose correlation id in the exported trace is that of
+    a CUDA runtime call inside it (``scripts.analyze_trace.span_events``).
+    The warm-up takes the first records that the profiler loses in some
+    processes (the spin kernels did not always: in one such process every
+    window lost a train-program replay's first banded-kNN pack kernel); a
+    line is printed where it did.  Returns (the profiled call's output, its
+    kernel count by __global__ name of GLOBALS, all device events it
+    launched, its host dispatches, their device ms, the launch counters'
+    rise in it)."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from buffer_tpu_torch.utils.profiling import (kernel_events, open_window,
-                                                  settle)
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.scripts.analyze_trace import span_events
+    from buffer_tpu_torch.utils.profiling import open_window, settle
     torch.cuda.synchronize()
+    rose = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         open_window()
-        with torch.profiler.record_function("profiled call"):
-            out = fn()
+        for span in PROFILE_SPANS:
+            before = cuda.launch_counts()
+            with torch.profiler.record_function(span):
+                out = fn()
+            rose[span] = {k: v - before[k]
+                          for k, v in cuda.launch_counts().items()}
         settle()
-    kernels = kernel_events(prof)
+    path = cuda.BUILD_DIR / "profile_call.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    path.unlink()
     names = sorted({n for ns in GLOBALS.values() for n in ns})
-    seen = {n: sum(1 for e in kernels if re.search(rf"\b{n}\b", e.name))
-            for n in names}
-    call = next(e for e in prof.events() if e.name == "profiled call"
+
+    def seen_of(ks):
+        return {n: sum(1 for e in ks if re.search(rf"\b{n}\b", e["name"]))
+                for n in names}
+
+    warm, ks = (span_events(events, s) for s in PROFILE_SPANS)
+    warm_seen = seen_of(warm)
+    if not shows(warm_seen, expected(rose[PROFILE_SPANS[0]])):
+        print(json.dumps({"profile_warm_up_lost_records": warm_seen,
+                          "rose": rose[PROFILE_SPANS[0]]}), flush=True)
+    call = next(e for e in prof.events() if e.name == PROFILE_SPANS[1]
                 and e.device_type == torch.autograd.DeviceType.CPU)
     dispatches = sum(1 for e in prof.events()
                      if re.fullmatch(DISPATCH_APIS, e.name)
                      and call.time_range.start <= e.time_range.start
                      <= call.time_range.end)
-    return (out, seen, len(kernels), dispatches,
-            sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+    return (out, seen_of(ks), len(ks), dispatches,
+            sum(e["dur"] for e in ks) / 1e3, rose[PROFILE_SPANS[1]])
+
+
+def expected(rose: dict) -> dict:
+    """The kernel counts by __global__ name that the launch counters' rise
+    ``rose`` stands for."""
+    want = {}
+    for k, v in rose.items():
+        for name in GLOBALS[k]:
+            want[name] = want.get(name, 0) + v
+    return want
+
+
+def shows(seen: dict, want: dict) -> bool:
+    """A profile's kernel counts ``seen`` are ``want``'s, and no other
+    kernel of GLOBALS appears."""
+    return {n: c for n, c in seen.items() if c or n in want} == want
 
 
 def profiled_launches(path: str, fn, ok=lambda out: True):
@@ -1803,24 +1874,18 @@ def profiled_launches(path: str, fn, ok=lambda out: True):
     ``__global__`` names show each kernel as often as its counter rose in
     the call, and no other, and ``ok(fn's output)`` holds.  A profile that
     shows fewer kernels than the counters, and none more, lost records: it
-    is taken again, up to PROFILE_ATTEMPTS profiles.  Returns
-    (``profile_call``'s tuple, the counters' rise, the profiles taken)."""
-    from buffer_tpu_torch.kernels import cuda
+    is taken again, up to PROFILE_ATTEMPTS profiles.  Returns (the first
+    five of ``profile_call``'s tuple, the counters' rise, the profiles
+    taken)."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        before = cuda.launch_counts()
         prof = profile_call(fn)
-        rose = {k: v - before[k] for k, v in cuda.launch_counts().items()}
-        want = {}
-        for k, v in rose.items():
-            for name in GLOBALS[k]:
-                want[name] = want.get(name, 0) + v
-        out, seen, n_kernels, _, kernel_ms = prof
+        out, seen, n_kernels, _, kernel_ms, rose = prof
         if not ok(out):
             raise RuntimeError(f"{path}: the profiled call's result differs")
-        shown = {n: c for n, c in seen.items() if c or n in want}
-        if shown == want:
-            return prof, rose, attempt
-        lost = all(c <= want.get(n, 0) for n, c in shown.items())
+        want = expected(rose)
+        if shows(seen, want):
+            return prof[:5], rose, attempt
+        lost = all(c <= want.get(n, 0) for n, c in seen.items())
         print(json.dumps({"profile_lost_records": path, "attempt": attempt,
                           "seen": seen, "rose": rose,
                           "kernels": n_kernels}), flush=True)
@@ -1900,7 +1965,7 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
     (res, seen, n_kernels, dispatches, kernel_ms), _, attempts = \
         profiled_launches(path, lambda: fn(pairs[0], draws[0]),
                           lambda out: results_equal(out, eager[0]))
-    *_, eager_kernels, eager_dispatches, eager_kernel_ms = profile_call(
+    _, _, eager_kernels, eager_dispatches, eager_kernel_ms, _ = profile_call(
         lambda: registration.register_pair(model, pairs[0], draws[0],
                                            device=dev))
     line = {"path": path, "pairs": len(pairs), "calls": 2 * len(pairs),
@@ -2345,9 +2410,9 @@ def profiles_path(dev, model, pair, draws) -> dict:
     rows bit-equal to the modules they split), ``profile_train`` on every
     stage with the precision check, ``capture_trace`` and
     ``analyze_trace``: the trace's depth-1 ms an iteration within 5% of a
-    profiled replay's kernel ms of the same program on the main path's
-    first pair (``model``, ``pair``, ``draws``: the scripts' own pair and
-    draws).  Every row finite and above 0."""
+    profiled replay's kernel ms of the same program on the scripts' own
+    pair and draws (``model``, ``pair``, ``draws``: ``profile_stages.
+    profile_pair``, bench.py's pair).  Every row finite and above 0."""
     from buffer_tpu_torch.kernels import cuda
     from buffer_tpu_torch.pipeline import registration
     from buffer_tpu_torch.scripts import (analyze_trace, capture_trace,
@@ -2396,7 +2461,7 @@ def profiles_path(dev, model, pair, draws) -> dict:
     fn = registration.make_register_fn(model, device=dev)
     for _ in range(2):
         fn(pair, draws)
-    *_, kernel_ms = profile_call(lambda: fn(pair, draws))
+    kernel_ms = profile_call(lambda: fn(pair, draws))[4]
     ratio = ana["ms_per_iter"] / kernel_ms
     if not (kernel_ms > 0 and abs(ratio - 1) <= 0.05):
         raise RuntimeError(f"analyze_trace: {ana['ms_per_iter']} ms an "
@@ -2723,6 +2788,15 @@ def recorded_calls(fn, names):
     return out, calls
 
 
+def nn64(q, s, valid, chunk: int = 4096):
+    """The exact 1-NN indices [B, Q] of q [B, Q, 3] over the valid points
+    of s [B, S, 3], by float64 ``torch.cdist`` a query chunk at a time."""
+    import torch
+    far = torch.where(valid[..., None], s, torch.full_like(s, 1e6)).double()
+    return torch.cat([torch.cdist(q[:, c:c + chunk].double(), far).min(dim=2)
+                      .indices for c in range(0, q.shape[1], chunk)], dim=1)
+
+
 def peak_mb(fn) -> float:
     """MiB that fn() allocates on the card at its peak, beyond what was
     held before it."""
@@ -2915,11 +2989,8 @@ def last_modules_path(dev, cfg, kcfg, model, pair, draws, pose_gt, eager,
             raise RuntimeError("nearest: the dense level 0 is not a fallback")
         run = lambda: neighbors.nearest(q, s, sv, band=band, query_valid=sv)
         d, i = run()
-        far = torch.where(sv[..., None], s, torch.full_like(s, 1e6)).double()
-        exact = lambda: [torch.cdist(q[:, c:c + 4096].double(), far).min(dim=2)
-                         for c in range(0, q.shape[1], 4096)]
-        ie = torch.cat([m.indices for m in exact()], dim=1)
-        agree = float((i == ie)[sv].float().mean())
+        exact = lambda: nn64(q, s, sv)
+        agree = float((i == exact())[sv].float().mean())
         (dg, ig), _ = graph_replay(lambda: neighbors.nearest_banded(
             q, s, sv, band, query_valid=sv))
         if not (torch.equal(dg, d) and torch.equal(ig, i)):
@@ -3042,7 +3113,99 @@ def last_modules_path(dev, cfg, kcfg, model, pair, draws, pose_gt, eager,
     out["msgpack"] = {"files": len(paths), "bytes": os.path.getsize(
         paths["Desc"]), "register_bit_equal": True}
     print(json.dumps({"msgpack": out["msgpack"]}))
-    return out
+    return out, (dcfg, dpair)
+
+
+def no_mask_path(dev, cfg, pair, dcfg, dpair) -> dict:
+    """The banded searches without ``query_valid``, which take no banded
+    kernel (as JAX's take no Pallas kernel) but the fallbacks, their
+    windows scaled by S / Q: at the 3DMatch level 0 (the main path's first
+    pair: the level-0 kNN, Q = S = 30720, and the l0 -> l1 1-NN over
+    10240) and the dense-LiDAR level 0 (``dcfg``, ``dpair``: the level-0
+    kNN at 81920 and the level-0 points moved by NN_JITTER noise against
+    themselves), each at its preset's band (4096).  Each call launches no
+    bknn and no bnn1, is bit-equal to ``radius_knn_banded`` /
+    ``nearest_banded`` called with ``query_valid=None``, and scores recall
+    > RECALL_KNN against the exact search (on the radius prefix, as
+    ``banded_entries`` scores the level-0 list) or 1-NN agreement >
+    AGREE_NN1 against the float64 exact 1-NN; ms by CUDA events, beside
+    the masked call's (the kernels at 3DMatch).  Raises on a failed gate;
+    returns the rows."""
+    import torch
+    from buffer_tpu_torch.core.numerics import full_fp32
+    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.ops import neighbors
+    from buffer_tpu_torch.utils.profiling import card_line
+    card = card_line()
+    rows = []
+
+    def unlaunched(what, fn):
+        cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        rose = {k: n for k, n in cuda.launch_counts().items()
+                if k in ("bknn", "bnn1") and n}
+        if rose:
+            raise RuntimeError(f"no-mask {what}: launched {rose}")
+        return out
+
+    def equal(what, got, want):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"no-mask {what}: differs from the fallback "
+                               "called with query_valid=None")
+
+    for path, c, p in (("3DMatch", cfg, pair), ("KITTI dense", dcfg, dpair)):
+        st = c.static
+        band, k = st.knn_band, max(st.normal_knn, st.neighbor_caps[0])
+        r0 = c.data.voxel_size_0 * c.point.conv_radius
+        s, sv = p.sds, p.sds_mask
+        if path == "3DMatch":
+            q, qv, sup, supv = s, sv, p.lvl1, p.lvl1_mask
+        else:
+            noise = torch.randn(s.shape, generator=torch.Generator(
+                device=dev).manual_seed(3), device=dev)
+            q, qv = torch.where(sv[..., None], s + NN_JITTER * noise, s), sv
+            sup, supv = s, sv
+        S, Sn = s.shape[1], sup.shape[1]
+        routes = (neighbors.knn_route(S, band, masked=False),
+                  neighbors.nearest_route(Sn, band, masked=False))
+        if routes != ("fallback", "fallback"):
+            raise RuntimeError(f"no-mask {path}: not the fallbacks' shapes")
+        with torch.no_grad(), full_fp32():
+            knn = lambda: neighbors.radius_knn(s, s, sv, k, None, band=band)
+            got = unlaunched(f"{path} kNN", knn)
+            equal(f"{path} kNN", got, neighbors.radius_knn_banded(
+                s, s, sv, k, None, band, query_valid=None))
+            exact = neighbors.radius_knn(s, s, sv, k, r0)
+            masked = lambda: neighbors.radius_knn(s, s, sv, k, None, band=band,
+                                                  query_valid=sv)
+            rows.append({"path": path, "fn": "radius_knn", "B": s.shape[0],
+                         "Q": S, "S": S, "k": k, "band": band,
+                         "route": neighbors.knn_route(S, band, masked=False),
+                         "masked_route": neighbors.knn_route(S, band),
+                         "recall": knn_recall(got, exact, sv, r0 * r0),
+                         "ms": cuda_ms(knn, 5), "masked_ms": cuda_ms(masked, 5)})
+            nn = lambda: neighbors.nearest(q, sup, supv, band=band)
+            d, i = unlaunched(f"{path} 1-NN", nn)
+            equal(f"{path} 1-NN", (d, i), neighbors.nearest_banded(
+                q, sup, supv, band, query_valid=None))
+            masked = lambda: neighbors.nearest(q, sup, supv, band=band,
+                                               query_valid=qv)
+            rows.append({"path": path, "fn": "nearest", "B": q.shape[0],
+                         "Q": q.shape[1], "S": Sn, "band": band,
+                         "route": neighbors.nearest_route(Sn, band,
+                                                          masked=False),
+                         "masked_route": neighbors.nearest_route(Sn, band),
+                         "agreement": float((i == nn64(q, sup, supv))[qv]
+                                            .float().mean()),
+                         "ms": cuda_ms(nn, 5), "masked_ms": cuda_ms(masked, 5)})
+    for row in rows:
+        print(json.dumps({"no_mask": row, "card": card}))
+    if (min(r["recall"] for r in rows if "recall" in r) <= RECALL_KNN
+            or min(r["agreement"] for r in rows if "agreement" in r)
+            <= AGREE_NN1):
+        raise RuntimeError(f"no-mask searches below their bars: {rows}")
+    return {"card": card, "rows": rows}
 
 
 def main() -> int:
@@ -3167,7 +3330,10 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     lap("bench")
 
     # ---- the measurement entry points: profiles and traces --------------
-    profiles = profiles_path(dev, model, pairs[0], draws[0])
+    from buffer_tpu_torch.scripts.profile_stages import profile_pair
+    ppair, _, pdraws = profile_pair(cfg, dev)
+    profiles = profiles_path(dev, model, ppair, pdraws)
+    del ppair, pdraws
     lap("profiles")
 
     # ---- the first pair of each preset with every call recorded ---------
@@ -3202,10 +3368,15 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     lap("recorded runs and fps_single")
 
     # ---- the last modules: fallbacks, describe_cloud, normals, se3, msgpack
-    last = last_modules_path(dev, cfg, kcfg, model, pairs[0], draws[0],
-                             torch.as_tensor(poses_gt[0], device=dev), res_k,
-                             inter_k)
+    last, (dcfg, dpair) = last_modules_path(
+        dev, cfg, kcfg, model, pairs[0], draws[0],
+        torch.as_tensor(poses_gt[0], device=dev), res_k, inter_k)
     lap("last modules")
+
+    # ---- the banded searches without query_valid -------------------------
+    no_mask = no_mask_path(dev, cfg, pairs[0], dcfg, dpair)
+    del dpair
+    lap("no-mask")
 
     # ---- stage-sequential training at full width -----------------------
     from buffer_tpu_torch.pipeline.train_forward import make_train_draws
@@ -3450,9 +3621,10 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
         train_ms += cuda_ms(lambda a=a: knn_cuda.banded_nn1_cuda(*a), 20)
         train_launch_ms += cuda_ms(knn_cuda.bnn1_launcher(
             *a, [torch.empty_like(x) for x in got]), 20)
+    topk = topk_library(calls["banded_knn_cuda"], cfg)
     for kern, name in ((knn_cuda.BKNN, "bknn"), (knn_cuda.BNN1, "bnn1")):
         s = sums[name]
-        extra = {} if name == "bknn" else {
+        extra = topk if name == "bknn" else {
             "launch_ms": s["launch_ms"], "launch_ms_kitti": ksums[name]["launch_ms"],
             "plan": [r["plan"] for r in rows if r["kernel"] == "bnn1"],
             "launches_train_step": train["stages"][0][
@@ -3561,7 +3733,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
             "paths": [main_line, kitti_line, band0_line, sampled_line],
             "programs": programs, "program_variants": variants,
             "unrolled": unrolled,
-            "bench": bench, "last_modules": last,
+            "bench": bench, "last_modules": last, "no_mask": no_mask,
             "profiles": profiles,
             "device_levels": levels, "train_entry": train_entry,
             "presets": presets, "train_then_register": ttr,

@@ -7,6 +7,7 @@ exactly equal.  Also the dispatch of the pyramid's searches at the 3DMatch
 and KITTI plans, and the CPU wrappers.  Clouds are numpy-seeded surfaces,
 Morton-sorted by both packages' ``morton_sort`` (held equal)."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -201,6 +202,74 @@ def test_dispatch_raises_for_unported_fallback():
     assert neighbors.knn_route(70000, 35000) == "dense"
 
 
+def _routes_with_masks(S, band):
+    """The routes of a search with query_valid, restated from the TPU
+    path's dispatch (``buffer_tpu/ops/neighbors.py:98-120, 402-411``):
+    (kNN, 1-NN)."""
+    knn, nn = "dense", "exact"
+    if band and 2 * band < S:
+        knn = nn = "fallback"
+    if band and knn_cuda.banded_supported(S):
+        _, covers = knn_cuda.banded_win_rows(S, band)
+        if 2 * band < S or covers:
+            knn = "banded"
+        if 2 * band < S:
+            nn = "banded"
+    return knn, nn
+
+
+def test_routes_with_masks_are_unchanged():
+    """With query_valid every search keeps its route; without it no
+    search takes a banded kernel, and a restricting band takes the
+    fallback."""
+    for S in (1, 512, 1500, 2048, 3072, 4096, 6144, 10240, 20480, 30720,
+              40960, 65536, 70000, 81920, 1 << 20):
+        for band in (None, 0, 64, 512, 1024, 4096, 35000):
+            knn, nn = _routes_with_masks(S, band)
+            assert neighbors.knn_route(S, band) == knn, (S, band)
+            assert neighbors.knn_route(S, band, masked=True) == knn
+            assert neighbors.nearest_route(S, band) == nn, (S, band)
+            assert neighbors.nearest_route(S, band, masked=True) == nn
+            restricts = bool(band) and 2 * band < S
+            assert neighbors.knn_route(S, band, masked=False) == (
+                "fallback" if restricts else "dense")
+            assert neighbors.nearest_route(S, band, masked=False) == (
+                "fallback" if restricts else "exact")
+
+
+def test_pyramid_with_masks_calls_the_kernels_as_before(monkeypatch):
+    """The pyramid passes masks: at a plan with a live band (level 0 of 32
+    grid rows, band 512) it calls the banded kNN 4 times, the banded 1-NN
+    and the exact 1-NN once each, and no fallback -- the shipped 3DMatch
+    preset's launch table a pair."""
+    from buffer_tpu_torch.data.synthetic import bench_pair
+    from buffer_tpu_torch.pipeline.pyramid import build_pyramid_and_normals
+    c = tconfig.tiny_cfg()
+    cfg = c.replace(static=dataclasses.replace(
+        c.static, points_l0=4096, points_l1=2048, points_l2=512,
+        raw_points=4096, knn_band=512))
+    names = ("banded_knn_cuda", "banded_nn1_cuda", "nearest_cuda",
+             "radius_knn_banded", "nearest_banded")
+    calls = dict.fromkeys(names, 0)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name in names:
+        monkeypatch.setattr(neighbors, name, counted(name,
+                                                     getattr(neighbors, name)))
+    inputs, _ = bench_pair(cfg, "cpu")
+    build_pyramid_and_normals(cfg, inputs.sds, inputs.sds_mask,
+                              (inputs.lvl1, inputs.lvl1_mask, inputs.lvl2,
+                               inputs.lvl2_mask))
+    assert calls == {"banded_knn_cuda": 4, "banded_nn1_cuda": 1,
+                     "nearest_cuda": 1, "radius_knn_banded": 0,
+                     "nearest_banded": 0}
+
+
 @pytest.mark.parametrize("n_elig", [None, 30, 0])
 def test_fps_single_matches_pallas(n_elig):
     rs = np.random.RandomState(9)
@@ -230,6 +299,12 @@ def test_banded_wrappers_take_plain_versions_on_cpu():
     d, i, v = neighbors.radius_knn(args[0], args[1], args[2], 8, 0.1,
                                    band=512, query_valid=args[3])
     assert torch.equal(i[v], knn_cuda.banded_knn_plain(*args, 8, 0.1, 64)[1][v])
+    # without query_valid a restricting band takes the fallbacks, as JAX
+    # does (tests/test_torch_fallback.py holds them to JAX's)
+    for got, want in zip(neighbors.nearest(*args[:3], band=512),
+                         neighbors.nearest_banded(*args[:3], 512)):
+        assert torch.equal(got, want)
+    for got, want in zip(neighbors.radius_knn(*args[:3], 8, 0.1, band=512),
+                         neighbors.radius_knn_banded(*args[:3], 8, 0.1, 512)):
+        assert torch.equal(got, want)
     assert max(cuda.launch_counts().values()) == 0
-    with pytest.raises(ValueError, match="query_valid"):
-        neighbors.nearest(args[0], args[1], args[2], band=512)

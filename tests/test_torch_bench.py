@@ -1,7 +1,8 @@
 """The port's benchmark entry point (``buffer_tpu_torch/bench.py``) on the
 CPU: its pair against the repository's ``bench.synthetic_pair`` array for
-array, its rotation against the JAX draw, its static-plan overrides against
-``bench.py``'s, the differenced timing on a fake clock, the JSON line of
+array (seeds 0-2; also the measurement scripts' pair), its rotation
+against the JAX draw, its static-plan overrides against ``bench.py``'s,
+the differenced timing on a fake clock, the JSON line of
 ``main`` at the tiny plan with each pair of its last call bit-equal to
 ``register_pair`` on the same pair and draws, ``--batch`` and ``--unroll``
 with bench.py's defaults, the measured call's pose against JAX's
@@ -53,14 +54,16 @@ EXTRA_KEYS = {"ms_per_pair", "compile_s", "sanity_rte_m", "sanity_rre_deg",
               "weights", "card"}
 
 
-@pytest.mark.parametrize("plan", ["tiny", "3DMatch"])
-def test_bench_pair_is_bench_py_pair(plan):
-    """``bench_pair`` is ``bench.synthetic_pair(cfg, seed=0)`` array for
-    array and T exactly, at the tiny plan and the full 3DMatch plan."""
+@pytest.mark.parametrize("plan,seed", [("tiny", 0), ("tiny", 1), ("tiny", 2),
+                                       ("3DMatch", 0)])
+def test_bench_pair_is_bench_py_pair(plan, seed):
+    """``bench_pair(cfg, seed=s)`` is ``bench.synthetic_pair(cfg, seed=s)``
+    array for array and T exactly: seeds 0-2 at the tiny plan, seed 0 at
+    the full 3DMatch plan."""
     jcfg = jconfig.tiny_cfg() if plan == "tiny" else jconfig.make_cfg(plan)
     tcfg = tconfig.tiny_cfg() if plan == "tiny" else tconfig.make_cfg(plan)
-    want, T_want = jbench.synthetic_pair(jcfg)
-    got, T_got = bench_pair(tcfg, device="cpu")
+    want, T_want = jbench.synthetic_pair(jcfg, seed=seed)
+    got, T_got = bench_pair(tcfg, device="cpu", seed=seed)
     assert T_got.dtype == np.float32
     np.testing.assert_array_equal(T_got, np.asarray(T_want))
     for name, g, w in zip(got._fields, got, want):
@@ -68,6 +71,28 @@ def test_bench_pair_is_bench_py_pair(plan):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     n = min(tcfg.static.raw_points, 60000)
     assert int(got.raw_mask.sum()) > 0 and got.raw.shape[1] >= n // 2
+
+
+def test_profiled_pair_is_the_bench_pair():
+    """The measurement scripts' 3DMatch pair (``profile_stages.
+    profile_pair``) is ``bench_pair`` seed 0, with draws from a generator
+    seeded 0; KITTI's is ``lidar_pair`` seed 13."""
+    from buffer_tpu_torch.pipeline.registration import make_draws
+    from buffer_tpu_torch.scripts.profile_stages import profile_pair
+    same = lambda g, w: (g is None) == (w is None) and (
+        g is None or torch.equal(g, w))
+    for make in (tconfig.tiny_cfg,
+                 lambda: tconfig.shrink_static(tconfig.make_cfg("KITTI"))):
+        cfg = make()
+        inputs, T, draws = profile_pair(cfg, CPU)
+        want, T_want = (lidar_pair(cfg, 13, CPU) if cfg.data.dataset == "KITTI"
+                        else bench_pair(cfg, CPU))
+        np.testing.assert_array_equal(T, T_want)
+        for name, g, w in zip(inputs._fields, inputs, want):
+            assert same(g, w), name
+        for name, g, w in zip(draws._fields, draws, make_draws(
+                cfg, torch.Generator().manual_seed(0), CPU)):
+            assert same(g, w), name
 
 
 def test_bench_rotation_is_the_jax_draw():

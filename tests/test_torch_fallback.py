@@ -10,8 +10,10 @@ exact fp32 distances and an exact top-k / argmin, where JAX ranks bf16
 scores (a TPU workaround): the 1-NN agrees except at fp32 distance ties,
 and a kNN set may differ only in entries within one bf16 spacing (2^-7
 relative: two distances that round to one bf16 value rank by index in
-JAX) of the k-th distance.  Clouds are numpy-seeded Morton-sorted
-surfaces."""
+JAX) of the k-th distance.  Also the searches without ``query_valid``,
+where JAX takes no Pallas kernel: the fallbacks where the band restricts
+(their windows scaled by S / Q), the exact searches where it does not.
+Clouds are numpy-seeded Morton-sorted surfaces."""
 
 import dataclasses
 
@@ -102,11 +104,24 @@ def test_fallbacks_match_jax(case):
 
     # 1-NN: equal indices except at fp32 distance ties; d2 to 1e-6 of the
     # formula's scale
-    jd, ji = (np.asarray(a) for a in jnbr.nearest_banded(
-        j(qry), j(sup), j(sv), band, query_valid=j(qv)))
-    d, i = neighbors.nearest(tb(qry), tb(sup), tb(sv), band=band,
-                             query_valid=tb(qv))
-    d, i = d[0].numpy(), i[0].numpy()
+    want = jnbr.nearest_banded(j(qry), j(sup), j(sv), band, query_valid=j(qv))
+    _assert_nn_within_ties(qry, sup, neighbors.nearest(
+        tb(qry), tb(sup), tb(sv), band=band, query_valid=tb(qv)), want)
+
+    # kNN: the contract of radius_knn, the valid sets up to bf16 ranking
+    # near the k-th distance, every d2 its index's float64 distance
+    want = jnbr.radius_knn_banded(j(qry), j(sup), j(sv), k, radius, band,
+                                  query_valid=j(qv))
+    _assert_knn_within_bf16(qry, sup, k, radius, neighbors.radius_knn(
+        tb(qry), tb(sup), tb(sv), k, radius, band=band, query_valid=tb(qv)),
+        want)
+
+
+def _assert_nn_within_ties(qry, sup, got, want):
+    """The port's 1-NN (d2, idx) [1, Q] against JAX's [Q]: equal indices
+    except at fp32 distance ties, d2 to 1e-6 of the formula's scale."""
+    jd, ji = (np.asarray(a) for a in want)
+    d, i = (a[0].numpy() for a in got)
     assert i.dtype == np.int32
     scale = float(np.max(np.sum(qry.astype(np.float64) ** 2, -1)))
     for q in np.nonzero(i != ji)[0]:
@@ -114,12 +129,15 @@ def test_fallbacks_match_jax(case):
         assert abs(a - b) <= 1e-6 * scale, (q, a, b)
     np.testing.assert_allclose(d, jd, rtol=1e-6, atol=1e-6 * scale)
 
-    # kNN: the contract of radius_knn, the valid sets up to bf16 ranking
-    # near the k-th distance, every d2 its index's float64 distance
-    jd, ji, jv = (np.asarray(a) for a in jnbr.radius_knn_banded(
-        j(qry), j(sup), j(sv), k, radius, band, query_valid=j(qv)))
-    d, i, v = (a[0].numpy() for a in neighbors.radius_knn(
-        tb(qry), tb(sup), tb(sv), k, radius, band=band, query_valid=tb(qv)))
+
+def _assert_knn_within_bf16(qry, sup, k, radius, got, want):
+    """The port's kNN (d2, idx, valid) [1, Q, k] against JAX's [Q, k]:
+    :func:`radius_knn`'s contract, the valid counts equal, the valid sets
+    equal up to entries within one bf16 spacing of the k-th distance, every
+    valid d2 within 1e-5 of its index's float64 distance."""
+    jd, ji, jv = (np.asarray(a) for a in want)
+    d, i, v = (a[0].numpy() for a in got)
+    Q = qry.shape[0]
     assert i.dtype == np.int32 and d.shape == (Q, k)
     assert (d[~v] == neighbors.BIG).all() and (i[~v] == 0).all()
     assert (np.diff(d, axis=-1) >= 0).all()
@@ -128,17 +146,62 @@ def test_fallbacks_match_jax(case):
     assert (v.sum(-1) == jv.sum(-1)).all()
     n_diff = 0
     for q in range(Q):
-        got, want = set(i[q][v[q]]), set(ji[q][jv[q]])
-        if got == want:
+        g, w = set(i[q][v[q]]), set(ji[q][jv[q]])
+        if g == w:
             continue
         kth = d64[q][v[q]].max()
-        for s in got ^ want:
+        for s in g ^ w:
             ds = _d64(qry[q:q + 1], sup, np.array([[s]]))[0, 0]
             assert abs(ds - kth) <= BF16_RES * kth, (q, s, ds, kth)
         n_diff += 1
     assert n_diff <= Q // 2
     if radius is not None:
         assert (d[v] <= radius ** 2).all()
+
+
+NO_MASK_CASES = {
+    # a kernel-supported S (32 grid rows) under a restricting band: the
+    # kernels with query_valid, the fallbacks without
+    "restricting-S4096": dict(S=4096, ns=3900, Q=1500, nq=1400, k=16,
+                              radius=0.12, band=512,
+                              routes=("banded", "fallback", "fallback")),
+    # a band whose window covers the grid (16 rows): the kNN kernel with
+    # query_valid, the exact searches without
+    "covering-S2048": dict(S=2048, ns=2000, Q=700, nq=600, k=8, radius=0.05,
+                           band=1024, routes=("banded", "dense", "exact")),
+    # past the kernels' 65536 ranks: the fallbacks, their windows scaled by
+    # S / Q instead of the valid counts
+    "S70000": dict(S=70000, ns=66000, Q=2600, nq=2500, k=16, radius=0.05,
+                   band=4096, routes=("fallback", "fallback", "fallback")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_MASK_CASES))
+def test_searches_without_query_valid_match_jax(case):
+    """``radius_knn(band=...)`` and ``nearest(band=...)`` without
+    ``query_valid`` against JAX's, which takes no Pallas kernel without the
+    mask (``buffer_tpu/ops/neighbors.py:98, 117-126, 402-411``): the
+    fallbacks where the band restricts, the exact searches where it does
+    not; within the allowances above."""
+    c = NO_MASK_CASES[case]
+    S, Q, k, radius, band = c["S"], c["Q"], c["k"], c["radius"], c["band"]
+    masked, knn, nn = c["routes"]
+    assert neighbors.knn_route(S, band) == masked
+    assert neighbors.knn_route(S, band, masked=False) == knn
+    assert neighbors.nearest_route(S, band, masked=False) == nn
+    sup, qry, sv, _ = _cloud(7, S, c["ns"], Q, c["nq"])
+    j = lambda a: jnp.asarray(a)
+    tb = lambda a: _t(a)[None]
+    Qp = -(-Q // 1024) * 1024
+    np.testing.assert_array_equal(
+        neighbors._band_starts(Qp, S, 1024, 2 * band).numpy(),
+        np.asarray(jnbr._band_starts(Qp, S, 1024, 2 * band)))
+    _assert_nn_within_ties(qry, sup, neighbors.nearest(
+        tb(qry), tb(sup), tb(sv), band=band), jnbr.nearest(
+        j(qry), j(sup), j(sv), band=band))
+    _assert_knn_within_bf16(qry, sup, k, radius, neighbors.radius_knn(
+        tb(qry), tb(sup), tb(sv), k, radius, band=band), jnbr.radius_knn(
+        j(qry), j(sup), j(sv), k, radius, band=band))
 
 
 def test_fallback_wide_window_groups_blocks(monkeypatch):

@@ -34,7 +34,7 @@ from buffer_tpu.pipeline import refine as jrefine
 import buffer_tpu_torch.config as tconfig
 from buffer_tpu_torch.compat.from_jax import variables_to_state_dict
 from buffer_tpu_torch.data.preprocess import prepare_pair
-from buffer_tpu_torch.data.synthetic import surface_pair
+from buffer_tpu_torch.data.synthetic import bench_pair, surface_pair
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.nn.cylindrical import CostNet
 from buffer_tpu_torch.pipeline import registration as reg
@@ -466,7 +466,8 @@ def test_card_only_entry_points_raise_without_a_card(name):
 
 def test_sanity_pair_on_the_cpu_equals_register_pair(capsys):
     """``sanity_pair --tiny --device cpu`` prints, for each seed, the RTE,
-    RRE and counts of ``register_pair`` on that seed's pair and draws with
+    RRE and counts of ``register_pair`` on that seed's pair (``bench_pair``:
+    ``bench.synthetic_pair``'s, as the JAX script takes) and draws with
     seeded random weights, and says the weights are random."""
     assert sanity_pair.main(["--tiny", "--device", "cpu"]) == 0
     got = json.loads(capsys.readouterr().out.splitlines()[-1])
@@ -475,7 +476,7 @@ def test_sanity_pair_on_the_cpu_equals_register_pair(capsys):
     model = BufferModel(cfg, seed=0).eval()
     assert [p["seed"] for p in got["pairs"]] == list(sanity_pair.SEEDS)
     for p in got["pairs"]:
-        inputs, T = surface_pair(cfg, p["seed"], "cpu")
+        inputs, T = bench_pair(cfg, "cpu", p["seed"])
         draws = reg.make_draws(cfg, torch.Generator().manual_seed(p["seed"]), "cpu")
         res = reg.register_pair(model, inputs, draws, device="cpu")
         pose = res.pose.double().numpy()
