@@ -9,6 +9,7 @@ the same seed gives the same arrays in both packages.
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Optional, Tuple
 
@@ -18,6 +19,7 @@ import torch
 from buffer_tpu_torch import resolve_device
 from buffer_tpu_torch.config import Config
 from buffer_tpu_torch.data.host import voxel_subsample_host
+from buffer_tpu_torch.utils import profiling
 
 
 def morton_sort(pts: np.ndarray, bits: int = 10) -> np.ndarray:
@@ -54,7 +56,15 @@ def prepare_pair(cfg: Config, src_raw: np.ndarray, tgt_raw: np.ndarray,
                  already_downsampled: bool = False, device=None):
     """Build :class:`~buffer_tpu_torch.pipeline.registration.PairInputs`
     (with host-built ``lvl1``/``lvl2``) from two raw clouds, on ``device``
-    (default: the CUDA card)."""
+    (default: the CUDA card).  Its host seconds add to the ``prep.s``
+    counter (:func:`~buffer_tpu_torch.utils.profiling.counters`)."""
+    t0 = time.perf_counter()
+    out = _prepare_pair(cfg, src_raw, tgt_raw, rs, already_downsampled, device)
+    profiling.count("prep.s", time.perf_counter() - t0)
+    return out
+
+
+def _prepare_pair(cfg, src_raw, tgt_raw, rs, already_downsampled, device):
     from buffer_tpu_torch.pipeline.registration import PairInputs
 
     dev = resolve_device(device)

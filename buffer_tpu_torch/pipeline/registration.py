@@ -25,6 +25,8 @@ package compiles U ``register_pair`` traces into one program.
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -39,6 +41,7 @@ from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.ops.sampling import farthest_point_sample_batched
 from buffer_tpu_torch.pipeline import matching, ransac, refine
 from buffer_tpu_torch.pipeline.pyramid import build_pyramid_and_normals
+from buffer_tpu_torch.utils import profiling
 
 
 class PairInputs(NamedTuple):
@@ -179,23 +182,41 @@ def describe_both(model: BufferModel, cfg: Config, draws: Draws, raw, raw_mask,
 
 
 class StageTimer:
-    """CUDA events recorded between the stages of :func:`register_pair`."""
+    """Timing events at the stage boundaries that :func:`pair_front` (six
+    marks: its start, the ends of its five stages) and :func:`pair_tail`
+    (three: its start, between RANSAC and IRLS, its end) mark.  The events
+    are external, so inside a stream capture each mark becomes an
+    event-record node of the graph, which every replay records again: the
+    same timer serves the eager :func:`register_pair` and a captured
+    front or tail."""
 
-    STAGES = ("pyramid", "ref_keypt", "fps", "descriptors", "tail")
+    STAGES = ("pyramid", "ref_keypt", "fps", "descriptors", "match",
+              "ransac", "refine")
+    FRONT, TAIL = STAGES[:5], STAGES[5:]
 
     def __init__(self):
         self.events = []
 
     def mark(self) -> None:
-        ev = torch.cuda.Event(enable_timing=True)
+        ev = torch.cuda.Event(enable_timing=True, external=True)
         ev.record()
         self.events.append(ev)
 
-    def stage_ms(self) -> dict:
-        """Milliseconds per stage (synchronizes on the last event)."""
-        self.events[-1].synchronize()
-        return {name: a.elapsed_time(b) for name, a, b in
-                zip(self.STAGES, self.events, self.events[1:])}
+    def ready(self) -> bool:
+        """Whether the last mark's work is done (never waits)."""
+        return self.events[-1].query()
+
+    def stage_ms(self, wait: bool = True) -> dict:
+        """Milliseconds of each stage the marks bound: a front's six marks
+        give :attr:`FRONT`, a tail's three :attr:`TAIL`, a pair's nine
+        both.  With ``wait`` it first waits for the last mark."""
+        if wait:
+            self.events[-1].synchronize()
+        ev = self.events
+        runs = {6: ((self.FRONT, ev),), 3: ((self.TAIL, ev),),
+                9: ((self.FRONT, ev[:6]), (self.TAIL, ev[6:]))}[len(ev)]
+        return {name: a.elapsed_time(b) for names, e in runs
+                for name, a, b in zip(names, e, e[1:])}
 
 
 def _check_model(model: BufferModel, dev: torch.device) -> None:
@@ -212,8 +233,8 @@ def register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
     """Registers one pair on ``device`` (default: the CUDA card).  The model
     must already live there.  Returns a :class:`RegistrationResult`, and
     with ``return_intermediates`` also the per-stage dict of the
-    reference's ``register_pair``.  A ``timer`` (CUDA only) records an
-    event at each stage boundary.  Runs operator by operator;
+    reference's ``register_pair``.  A :class:`StageTimer` (CUDA only)
+    records an event at each stage boundary.  Runs operator by operator;
     :func:`make_register_fn` runs the same front and tail as CUDA graphs."""
     dev = resolve_device(device)
     _check_model(model, dev)
@@ -222,12 +243,11 @@ def register_pair(model: BufferModel, inputs: PairInputs, draws: Draws,
     draws = Draws(*(move(t) for t in draws))
     mark = timer.mark if timer is not None else lambda: None
     with torch.no_grad(), full_fp32():
-        mark()
         front, inter = pair_front(model, inputs, draws, mark)
         boost = boost_taken(model.cfg, front.num_mutual)
         pose, num_inliers = pair_tail(model.cfg, front,
-                                      *tail_budget(model.cfg, draws, boost))
-        mark()
+                                      *tail_budget(model.cfg, draws, boost),
+                                      mark)
     result = RegistrationResult(pose=pose, num_mutual=front.num_mutual,
                                 num_inliers=num_inliers, kpts=front.kpts,
                                 kpt_valid=front.kpt_valid)
@@ -298,10 +318,12 @@ def pair_front(model: BufferModel, inputs: PairInputs, draws: Draws,
     descriptors, mutual matching, the cost volume and voting.  Returns
     (:class:`Front`, the intermediates dict).  Reads nothing back to the
     host and builds no tensor from host data, so that it can be captured
-    as a CUDA graph."""
+    as a CUDA graph.  ``mark()`` is called at the start and after each of
+    :attr:`StageTimer.FRONT`."""
     cfg = model.cfg
 
     # 1+2. input normals + conv pyramid, EFCNN axes, DetNet saliency
+    mark()
     levels = (None if inputs.lvl1 is None else
               (inputs.lvl1, inputs.lvl1_mask, inputs.lvl2, inputs.lvl2_mask))
     pyr = build_pyramid_and_normals(cfg, inputs.sds, inputs.sds_mask, levels)
@@ -326,6 +348,7 @@ def pair_front(model: BufferModel, inputs: PairInputs, draws: Draws,
     ind = cost_volume(model, s_equi, t_equi, tgt)
     R_h, t_h, best, vote_inliers = vote(cfg, kpts[0], tt_kpts, s_R, tt_R, ind,
                                         m.mutual)
+    mark()
 
     front = Front(ss_kpts=kpts[0], tt_kpts=tt_kpts, mutual=m.mutual,
                   vote_inliers=vote_inliers, num_mutual=num_mutual,
@@ -374,12 +397,18 @@ def tail_refine(cfg: Config, front: Front, pose: torch.Tensor, iters: int):
                                   front.mutual, th, iters=iters)
 
 
-def pair_tail(cfg: Config, front: Front, gumbel: torch.Tensor, iters: int):
+def pair_tail(cfg: Config, front: Front, gumbel: torch.Tensor, iters: int,
+              mark=lambda: None):
     """RANSAC on the winner's inliers, then (with ``test.pose_refine``)
     ``iters`` IRLS rounds.  Returns (pose [4, 4], number of RANSAC inliers
-    []).  Capture-safe like :func:`pair_front`."""
+    []).  Capture-safe like :func:`pair_front`; ``mark()`` is called at the
+    start and after each of :attr:`StageTimer.TAIL`."""
+    mark()
     pose, ransac_inl = tail_ransac(cfg, front, gumbel)
-    return tail_refine(cfg, front, pose, iters), torch.sum(ransac_inl)
+    mark()
+    pose = tail_refine(cfg, front, pose, iters)
+    mark()
+    return pose, torch.sum(ransac_inl)
 
 
 def _signature(inputs: PairInputs, draws: Draws) -> tuple:
@@ -459,11 +488,21 @@ class _GraphProgram:
 
     A replay runs no Python, so the kernels' launch counts of each graph
     are recorded at capture (and taken back: a capture launches nothing)
-    and added on each replay.  ``capture_s``: the host seconds that the
-    captures took."""
+    and added on each replay.  The front and each tail are captured with a
+    :class:`StageTimer` of their own, whose events every replay records
+    again; a call reads them into its record (:class:`_Calls`).
+    ``capture_s``: the host seconds that the captures took; the whole
+    first call (the eager warm-up and the captures) adds to the
+    ``register.capture_s`` counter."""
 
     def __init__(self, model: BufferModel, dev: torch.device,
                  return_intermediates: bool, inputs: PairInputs, draws: Draws):
+        t0 = time.perf_counter()
+        self._capture(model, dev, return_intermediates, inputs, draws)
+        profiling.count("register.capture_s", time.perf_counter() - t0)
+        self.calls = _Calls()
+
+    def _capture(self, model, dev, return_intermediates, inputs, draws):
         self.model, self.cfg, self.dev = model, model.cfg, dev
         self.return_intermediates = return_intermediates
         self.state = _state_ptrs(model)
@@ -494,13 +533,17 @@ class _GraphProgram:
 
             t0 = time.perf_counter()
             self.pool = torch.cuda.graph_pool_handle()
+            self.front_timer = StageTimer()
             self.front_graph, (self.front, self.inter), self.front_launches = \
                 capture_graph(lambda: pair_front(model, self.inputs,
-                                                 self.draws), self.pool,
-                              self.stream)
+                                                 self.draws,
+                                                 self.front_timer.mark),
+                              self.pool, self.stream)
+            self.tail_timers = {b: StageTimer() for b in budgets}
             self.tails = {b: capture_graph(lambda b=b: pair_tail(
-                self.cfg, self.front, *tail_budget(self.cfg, self.draws, b)),
-                self.pool, self.stream) for b in budgets}
+                self.cfg, self.front, *tail_budget(self.cfg, self.draws, b),
+                self.tail_timers[b].mark), self.pool, self.stream)
+                for b in budgets}
             self.capture_s = time.perf_counter() - t0   # host seconds
 
     def _load(self, inputs: PairInputs, draws: Draws) -> None:
@@ -515,9 +558,10 @@ class _GraphProgram:
         return (result, inter) if self.return_intermediates else result
 
     def replay_front(self, inputs: PairInputs, draws: Draws,
-                     caller: torch.cuda.Stream) -> None:
+                     caller: torch.cuda.Stream,
+                     call: Optional[_Call] = None) -> None:
         """Loads the pair and replays the front on the program's stream,
-        after the work queued on ``caller``."""
+        after the work queued on ``caller``, as a chain of ``call``."""
         if _state_ptrs(self.model) != self.state:
             raise RuntimeError(
                 "make_register_fn: the model's parameters or buffers are not "
@@ -525,27 +569,30 @@ class _GraphProgram:
                 "place, e.g. load_state_dict, or make a new fn)")
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            self._load(inputs, draws)
-            self.front_graph.replay()
+            with profiling.span("register.load"):
+                self._load(inputs, draws)
+            if call is not None:
+                call.front_started(self.front_timer)
+            with profiling.span("register.front"):
+                self.front_graph.replay()
         cuda.add_launches(self.front_launches)
 
-    def replay_tail(self, boost: bool):
+    def replay_tail(self, boost: bool, call: Optional[_Call] = None):
         """Replays the tail of the budget ``boost`` on the program's stream
-        (after its front); returns the program's outputs, which the caller
-        copies once it has joined the stream."""
+        (after its front), as a chain of ``call``; returns the program's
+        outputs, which the caller copies once it has joined the stream."""
         graph, (pose, num_inliers), launches = self.tails[boost]
-        with torch.cuda.stream(self.stream):
+        if call is not None:
+            call.tail_started(self.tail_timers[boost])
+        with torch.cuda.stream(self.stream), profiling.span("register.tail"):
             graph.replay()
         cuda.add_launches(launches)
         return self._outputs(self.front, self.inter, pose, num_inliers)
 
     def __call__(self, inputs: PairInputs, draws: Draws):
-        caller = torch.cuda.current_stream(self.dev)
-        self.replay_front(inputs, draws, caller)
-        caller.wait_stream(self.stream)
-        out = self.replay_tail(boost_taken(self.cfg, self.front.num_mutual))
-        caller.wait_stream(self.stream)
-        return _clone(out)
+        return _replay(self.calls, [self], self.dev, [inputs], [draws],
+                       lambda: [self.front.num_mutual],
+                       lambda outs: _clone(outs[0]))
 
 
 class _UnrolledProgram:
@@ -555,8 +602,8 @@ class _UnrolledProgram:
     mutual counts in one copy to the host (the counterpart of the U
     ``lax.cond`` of one JAX program), replays each chain's taken tail on
     its stream (a group may take both tails), joins again and stacks the
-    outputs on the caller's stream.  ``capture_s``: the chains' capture
-    seconds, summed."""
+    outputs on the caller's stream (:func:`_replay`).  ``capture_s``: the
+    chains' capture seconds, summed."""
 
     def __init__(self, model: BufferModel, dev: torch.device,
                  return_intermediates: bool, inputs_list, draws_list):
@@ -565,19 +612,150 @@ class _UnrolledProgram:
                        for i, d in zip(inputs_list, draws_list)]
         self.first = _stack([c.first for c in self.chains])
         self.capture_s = sum(c.capture_s for c in self.chains)
+        self.calls = _Calls()
 
     def __call__(self, inputs_list, draws_list):
-        caller = torch.cuda.current_stream(self.dev)
-        for chain, inputs, draws in zip(self.chains, inputs_list, draws_list):
-            chain.replay_front(inputs, draws, caller)
-        for chain in self.chains:
+        return _replay(self.calls, self.chains, self.dev, inputs_list, draws_list,
+                       lambda: torch.stack([c.front.num_mutual
+                                            for c in self.chains]).tolist(),
+                       _stack)
+
+
+def _event(stream) -> torch.cuda.Event:
+    """A timing event recorded on ``stream`` now."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+_call_index = itertools.count()     # the calls of the process, in order
+
+
+class _Call:
+    """The events of one call of a compiled program: plain timing events
+    on the caller's stream (``start``: call_start at entry;
+    ``fronts_done`` after the chains' fronts are joined, before the
+    mutual-count read; ``end``: call_end after the outputs are stacked),
+    and each chain's stage timers, whose events the graphs record again on
+    every replay: a front's first mark is the chain's front_start, a
+    tail's first mark its tail_start, both on the chain's stream as the
+    graph begins.  The front timers are read in the call itself once the
+    mutual counts are on the host (:meth:`read_fronts`), the rest while
+    the program's next call's fronts run (:class:`_Calls`)."""
+
+    def __init__(self, chains: int, stream, prev_end):
+        self.index, self.t = next(_call_index), time.perf_counter()
+        self.start = _event(stream)
+        self.prev_end = prev_end
+        self.front_timers, self.tail_timers = [], []
+        self.fronts_done = self.end = None
+        self.front_ms = [None] * chains
+
+    def front_started(self, timer: StageTimer) -> None:
+        """A chain's front replays with ``timer``."""
+        self.front_timers.append(timer)
+
+    def tail_started(self, timer: StageTimer) -> None:
+        """A chain's taken tail replays with ``timer``."""
+        self.tail_timers.append(timer)
+
+    def read_fronts(self) -> bool:
+        """Reads the front stage spans of every chain whose front is done,
+        and with the last chain's the load (never waits); whether all are
+        read."""
+        for u, timer in enumerate(self.front_timers):
+            if self.front_ms[u] is None and timer.ready():
+                self.front_ms[u] = timer.stage_ms(wait=False)
+                if u == len(self.front_ms) - 1:
+                    self.load_ms = self.start.elapsed_time(timer.events[0])
+        return all(ms is not None for ms in self.front_ms)
+
+    def record(self) -> dict:
+        """The call's record (:func:`~buffer_tpu_torch.utils.profiling.
+        call_records`), ``unread`` if its events are not all complete."""
+        if self.end is None or not self.end.query() or not self.read_fronts():
+            return {"t": self.t, "index": self.index, "unread": True}
+        return {
+            "t": self.t, "index": self.index, "unroll": len(self.front_ms),
+            "stages": [dict(f, **t.stage_ms(wait=False))
+                       for f, t in zip(self.front_ms, self.tail_timers)],
+            "load_ms": self.load_ms,
+            "tail_gap_ms": self.fronts_done.elapsed_time(
+                self.tail_timers[0].events[0]),
+            "call_gap_ms": (None if self.prev_end is None
+                            else self.prev_end.elapsed_time(self.start))}
+
+
+class _Calls:
+    """A program's call accounting: its last :class:`_Call`, held back
+    until the next call has launched its fronts (its graphs record their
+    timers again from then on), and that call's call_end, the start of the
+    next call's gap.  Nothing waits: a call whose events are not complete
+    when read is recorded unread.  ``call_records`` reads the last call
+    first (:func:`~buffer_tpu_torch.utils.profiling.add_source`)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.pending = self.last_end = None
+        profiling.add_source(self)
+
+    def begin(self, chains: int, stream) -> _Call:
+        """A call's entry: the :class:`_Call` of ``chains`` chains, its
+        call_start recorded on ``stream``.  The last call's fronts are
+        read now if they were not (its graphs replay again in this call);
+        if they cannot be, it is recorded unread."""
+        with self.lock:
+            if self.pending is not None and not self.pending.read_fronts():
+                self._flush()
+            return _Call(chains, stream, self.last_end)
+
+    def _flush(self) -> None:
+        if self.pending is not None:
+            profiling.add_record(self.pending.record())
+            self.pending = None
+
+    def flush(self) -> None:
+        """Records the last call: inside a call once its fronts are
+        launched (before its tails replay), or between calls."""
+        with self.lock:
+            self._flush()
+
+    def end(self, call: _Call, stream) -> None:
+        """A call's end: records its call_end on ``stream`` and holds it
+        back."""
+        call.end = _event(stream)
+        with self.lock:
+            self.pending, self.last_end = call, call.end
+
+
+def _replay(calls: _Calls, chains: list, dev: torch.device, inputs_list,
+            draws_list, counts, gather):
+    """One call of ``chains`` (:class:`_GraphProgram` s): the fronts
+    replayed side by side, the chains joined, the mutual counts read
+    (``counts()``: one per chain, a tensor or an int), each chain's taken
+    tail replayed, the chains joined, ``gather(outs)``.  Records the call's
+    events into ``calls`` and records the previous call while the fronts
+    run; while tracing, host spans."""
+    cfg = chains[0].cfg
+    caller = torch.cuda.current_stream(dev)
+    call = calls.begin(len(chains), caller)
+    with profiling.span("register.call", str(call.index)):
+        for chain, inputs, draws in zip(chains, inputs_list, draws_list):
+            chain.replay_front(inputs, draws, caller, call)
+        calls.flush()
+        for chain in chains:
             caller.wait_stream(chain.stream)
-        counts = torch.stack([c.front.num_mutual for c in self.chains]).tolist()
-        outs = [chain.replay_tail(boost_taken(self.cfg, n))
-                for chain, n in zip(self.chains, counts)]
-        for chain in self.chains:
+        call.fronts_done = _event(caller)
+        with profiling.span("register.mutual_read"):
+            boosts = [boost_taken(cfg, n) for n in counts()]
+        outs = [chain.replay_tail(b, call) for chain, b in zip(chains, boosts)]
+        call.read_fronts()
+        for chain in chains:
             caller.wait_stream(chain.stream)
-        return _stack(outs)
+        with profiling.span("register.outputs"):
+            out = gather(outs)
+        calls.end(call, caller)
+    return out
 
 
 def make_register_fn(model: BufferModel, device=None,

@@ -15,8 +15,11 @@ nothing, one that starts before the previous one ends counts its time past
 it) and aggregated by base name: the kernel name without its return type,
 template arguments and parameter list (``--exact``: the full name).
 Prints the depth-1 total, ms per iteration (``--iters``: the replays in the
-span), the events counted in part and how late the last is dated, and,
-largest first, each name's ms and count per iteration, then one
+span), the events counted in part and how late the last is dated,
+largest first, each name's ms and count per iteration, then the device's
+longest idle gaps inside the span (no event of the span's work running),
+each named by the innermost span of the registration program
+(``register.*``, opened while tracing) holding its midpoint, then one
 JSON line of the same.  Reads a file; needs no card.
 """
 
@@ -77,6 +80,34 @@ def span_events(events: list, span: str = "replays") -> list:
     return [e for e in events if e.get("ph") == "X"
             and e.get("cat") in DEVICE_CATS
             and e.get("args", {}).get("correlation") in launched]
+
+
+def idle_gaps(events: list, top: int = 10, span: str = "replays",
+              prefix: str = "register.") -> list:
+    """The ``top`` longest gaps inside the widest ``span`` in which none of
+    its device events (:func:`span_events`) runs, longest first: each as
+    ``{"span", "at_ms", "ms"}``, ``span`` the innermost CPU annotation
+    whose name starts with ``prefix`` holding the gap's midpoint (else
+    ``host``), ``at_ms`` its start after the span's."""
+    lo, hi = widest_span(events, span)
+    named = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name", "").startswith(prefix)]
+    gaps, t = [], lo
+    for e in sorted(span_events(events, span), key=lambda e: e["ts"]):
+        if e["ts"] > t:
+            gaps.append((t, min(e["ts"], hi)))
+        t = max(t, e["ts"] + e["dur"])
+    if t < hi:
+        gaps.append((t, hi))
+
+    def name_at(x):
+        inside = [(b - a, n) for a, b, n in named if a <= x <= b]
+        return min(inside)[1] if inside else "host"
+
+    gaps = sorted(((a, b) for a, b in gaps if b > a), key=lambda g: g[0] - g[1])
+    return [{"span": name_at(0.5 * (a + b)), "at_ms": (a - lo) / 1e3,
+             "ms": (b - a) / 1e3} for a, b in gaps[:top]]
 
 
 def depth1(events: list) -> list:
@@ -149,6 +180,7 @@ def analyze(path: str, iters: int = 4, top: int = 40,
             "in_part": len(in_part), "in_part_ms_per_iter":
                 sum(e["dur"] for e in in_part) / iters / 1e3,
             "late_ms": max(late, 0) / 1e3,
+            "idle_gaps": idle_gaps(events),
             "rows": [{"name": k, "ms_per_iter": d / iters / 1e3,
                       "count_per_iter": cnt[k] / iters,
                       "sample": sample[k][:110]}
@@ -176,6 +208,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for r in out["rows"]:
         print(f"{r['ms_per_iter']:8.3f} ms x{r['count_per_iter']:<7.2f} "
               f"{r['name'][:42]} | {r['sample']}")
+    for g in out["idle_gaps"]:
+        print(f"idle {g['ms']:8.3f} ms at {g['at_ms']:.3f} ms in {g['span']}")
     print(json.dumps(out))
     return 0
 

@@ -15,11 +15,11 @@ then ``--pairs`` more without and ``--pairs`` more under
 ``torch.profiler``.  Prints one JSON line: the wall time per pair without
 and with the profiler, the device time summed over CUDA kernels (busy
 share = device time / wall time without the profiler), the kernel launch
-count, per stage of ``register_pair`` its span on the device timeline
-(CUDA events, without the profiler) beside the kernel time between its
-boundary markers in the profile, and the operators with the most device
-time.  The Chrome trace goes to ``DIR/profile_<config>_band<N>.json.gz``
-(``..._levels.json.gz`` with device levels).
+count, each stage's span on the device timeline (``StageTimer``'s
+events, without the profiler: ``stage_ms``) and the operators with the
+most device time.  The Chrome trace goes to
+``DIR/profile_<config>_band<N>.json.gz`` (``..._levels.json.gz`` with
+device levels).
 
 With ``--train-stage`` it profiles ``train/trainer.train_step`` of that
 stage on the first pair with its ground-truth pose (one warm-up step, then
@@ -36,11 +36,24 @@ The helpers of the measurement entry points (``scripts/profile_*.py``,
 ``buffer_tpu/utils/profiling.py`` and of the JAX scripts' on-device scan
 timing: :func:`trace`, :func:`annotate`, :class:`StepTimer`,
 :func:`graph_time` and :func:`replay_time`.
+
+And the store of the compiled registration program's own accounting
+(``pipeline/registration.py`` records it).  Always on: every replayed
+call's record (:func:`call_records`: each chain's stage spans, the load,
+the gap before the tails, the gap since the program's last call; the
+calls whose events were not complete when read, :func:`unread_calls`),
+and the set-up counters (:func:`counters`: ``register.capture_s``,
+``prep.s``).  While a
+``torch.profiler`` session is active (:func:`tracing`), the program's host
+spans (:func:`span`): ``register.call`` (the call's index as its
+argument), ``register.load``, ``register.front``, ``register.mutual_read``,
+``register.tail`` and ``register.outputs``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gzip
@@ -49,7 +62,9 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
+import weakref
 from typing import Iterator, Optional
 
 # torch.profiler keeps only the device records that it dates inside its
@@ -108,12 +123,12 @@ def trace(log_dir: Optional[str]) -> Iterator[Optional[str]]:
 
 
 @contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span: a ``torch.profiler`` record function and, where a card
-    is present, an NVTX range."""
+def annotate(name: str, args: Optional[str] = None) -> Iterator[None]:
+    """A named span: a ``torch.profiler`` record function (carrying
+    ``args``) and, where a card is present, an NVTX range."""
     import torch
     nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
+    with torch.profiler.record_function(name, args):
         if nvtx:
             torch.cuda.nvtx.range_push(name)
         try:
@@ -121,6 +136,87 @@ def annotate(name: str) -> Iterator[None]:
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
+
+
+# ---- the registration program's own accounting
+#
+# Always on: the per-call records that the compiled program
+# (pipeline/registration.py) reads from its CUDA events, and the set-up
+# counters.  Only while a torch.profiler session is active (tracing()):
+# the program's host spans (span()), on the profiler's clock.
+
+RECORDS = 4096                  # the per-call records kept, newest last
+
+_lock = threading.Lock()
+_records: collections.deque = collections.deque(maxlen=RECORDS)
+_counters = {"register.capture_s": 0.0, "prep.s": 0.0}
+_sources = weakref.WeakSet()    # what holds records back: flush()ed first
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` session is active (``trace`` or any
+    ``torch.profiler.profile``)."""
+    import torch
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str, args: Optional[str] = None):
+    """:func:`annotate` while :func:`tracing`, else a context that does
+    nothing: one boolean check."""
+    return annotate(name, args) if tracing() else contextlib.nullcontext()
+
+
+def count(name: str, value: float) -> None:
+    """Adds ``value`` to the counter ``name``."""
+    with _lock:
+        _counters[name] += value
+
+
+def counters() -> dict:
+    """``register.capture_s`` and ``prep.s``: host seconds, summed over the
+    process."""
+    with _lock:
+        return dict(_counters)
+
+
+def add_source(source) -> None:
+    """``source.flush()`` adds the record it holds back (a call read only
+    during the next one); :func:`call_records` calls it first."""
+    _sources.add(source)
+
+
+def add_record(record: dict) -> None:
+    """Appends a call's record: ``t``, its host entry time, and either its
+    numbers or ``unread`` (its events were not complete when read)."""
+    with _lock:
+        _records.append(record)
+
+
+def _window(t_lo: float, t_hi: float) -> list:
+    for source in list(_sources):
+        source.flush()
+    with _lock:
+        return [r for r in _records if t_lo <= r["t"] <= t_hi]
+
+
+def call_records(t_lo: float, t_hi: float) -> list:
+    """The records of the calls that entered (host ``time.perf_counter``)
+    within [t_lo, t_hi], held-back ones added first (call it between
+    calls); unread calls are left out (:func:`unread_calls`).  A record:
+    ``t`` (entry), ``index``, ``unroll`` (U), ``stages`` (a dict a chain:
+    ms of each of ``StageTimer.STAGES`` on its stream), ``load_ms``
+    (call_start to the start of the last chain's front graph: the loads
+    and the fronts' launches), ``tail_gap_ms`` (fronts_done to the start
+    of the first chain's tail graph: the mutual-count read and the tail's
+    launch) and ``call_gap_ms`` (the program's previous call_end to this
+    call_start; None for its first replay)."""
+    return [r for r in _window(t_lo, t_hi) if not r.get("unread")]
+
+
+def unread_calls(t_lo: float, t_hi: float) -> int:
+    """How many calls that entered within [t_lo, t_hi] had events not yet
+    complete when read, so have no record in :func:`call_records`."""
+    return sum(1 for r in _window(t_lo, t_hi) if r.get("unread"))
 
 
 class StepTimer:
@@ -211,36 +307,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-class StageMarks:
-    """A ``register_pair`` timer that launches a marker kernel (ATen's
-    ``spin_kernel``, which the pipeline never launches) at each stage
-    boundary, so the profile's kernels split into stages by their order on
-    the stream."""
-
-    MARKER = "spin_kernel"
-
-    def mark(self) -> None:
-        import torch
-        torch.cuda._sleep(0)
-
-
-def stage_device_ms(kernels, stages, pairs: int):
-    """Kernel time per stage per pair from the profile's kernel events:
-    the stream's kernels between consecutive markers belong to one stage."""
-    out = {s: 0.0 for s in stages}
-    kernels = sorted(kernels, key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(kernels) if StageMarks.MARKER in e.name]
-    if len(marks) != pairs * (len(stages) + 1):
-        raise RuntimeError(f"expected {pairs * (len(stages) + 1)} stage "
-                           f"markers, found {len(marks)}")
-    for p in range(pairs):
-        m = marks[p * (len(stages) + 1):(p + 1) * (len(stages) + 1)]
-        for s, a, b in zip(stages, m, m[1:]):
-            out[s] += sum(e.time_range.elapsed_us()
-                          for e in kernels[a + 1:b]) / 1e3 / pairs
-    return out
 
 
 def kernel_events(prof):
@@ -371,17 +437,12 @@ def main() -> int:
         open_window()
         t0 = time.perf_counter()
         for _ in range(args.pairs):
-            register_pair(model, inputs, draws, device=dev, timer=StageMarks())
+            register_pair(model, inputs, draws, device=dev)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
         settle()
     kernels = kernel_events(prof)
-    busy = stage_device_ms(kernels, StageTimer.STAGES, args.pairs)
-    kernels = [e for e in kernels if StageMarks.MARKER not in e.name]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    stages = {s: {"span_ms": span[s], "device_ms": busy[s],
-                  "busy_share": busy[s] / span[s] if span[s] else None}
-              for s in StageTimer.STAGES}
     os.makedirs(args.out, exist_ok=True)
     levels = "_levels" if args.device_levels else ""
     save_trace(prof, os.path.join(
@@ -394,7 +455,8 @@ def main() -> int:
         "device_ms_per_pair": device_ms / args.pairs,
         "device_busy_share": device_ms / plain_wall_ms,
         "kernel_launches_per_pair": len(kernels) / args.pairs,
-        "stages": stages, "top_ops": top_ops(prof, args.pairs)}))
+        "stage_ms": span,
+        "top_ops": top_ops(prof, args.pairs)}))
     return 0
 
 

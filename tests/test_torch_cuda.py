@@ -8,6 +8,7 @@ runs where JAX is not installed:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from buffer_tpu_torch.data.synthetic import surface_pair
 from buffer_tpu_torch.kernels import cuda, fps_cuda, geom_cuda, knn_cuda, sites
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.pipeline import registration
+from buffer_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -747,6 +749,118 @@ def test_unrolled_program_equals_register_fn(card, plan):
     assert len({c.stream.cuda_stream for c in chains}) == 3
     assert len({c.pool for c in chains}) == 3
     assert all(sorted(c.tails) == [False, True] for c in chains)
+
+
+class _TimedGraph:
+    """A captured graph whose replays are bracketed by plain timing events
+    on the replaying stream."""
+
+    def __init__(self, graph):
+        self.graph, self.spans = graph, []
+
+    def replay(self):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        self.spans.append((a, b))
+
+
+def _three_pairs(card, plan="tiny"):
+    cfg, pairs = _program_pairs(plan, card)
+    if plan == "tiny":
+        pairs.append(_tiny_pair(cfg, card, 700, 0.4))
+    else:
+        pairs.append(surface_pair(cfg, 2, card)[0])
+    gen = torch.Generator(card).manual_seed(0)
+    return cfg, pairs, [registration.make_draws(cfg, gen, card) for _ in pairs]
+
+
+@pytest.mark.cuda
+def test_unrolled_program_stage_spans(card):
+    """A replayed ``make_unrolled_register_fn`` at the 3DMatch plan (U = 3,
+    IRLS on): every call leaves a record, every stage span of every chain
+    is positive, and a chain's front and tail stages add up, within 2%, to
+    the spans of the same replays of its front and tail graphs timed by
+    plain events around them.  (The outer span also holds the graph's
+    launch latency, ~0.15 ms on the card: 2% of the tiny plan's front.)"""
+    cuda.build_all()
+    cfg, pairs, draws = _three_pairs(card, "3DMatch")
+    model = BufferModel(cfg, seed=0).to(card)
+    fn = registration.make_unrolled_register_fn(model, 3)
+    fn(pairs, draws)
+    (program,) = fn.programs.values()
+    for c in program.chains:
+        c.front_graph = _TimedGraph(c.front_graph)
+        c.tails = {b: (_TimedGraph(g), out, n)
+                   for b, (g, out, n) in c.tails.items()}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn(pairs, draws).pose.cpu()
+    recs = profiling.call_records(t0, time.perf_counter())
+    assert profiling.unread_calls(t0, time.perf_counter()) == 0
+    assert [r["unroll"] for r in recs] == [3, 3, 3]
+    assert recs[0]["call_gap_ms"] is None          # first after the capture
+    FRONT, TAIL = registration.StageTimer.FRONT, registration.StageTimer.TAIL
+    for k, rec in enumerate(recs):
+        assert rec["load_ms"] > 0 and rec["tail_gap_ms"] > 0
+        assert k == 0 or rec["call_gap_ms"] > 0
+        for c, st in zip(program.chains, rec["stages"]):
+            assert tuple(st) == registration.StageTimer.STAGES
+            assert all(v > 0 for v in st.values()), st
+            a, b = c.front_graph.spans[k]
+            assert sum(st[s] for s in FRONT) == pytest.approx(
+                a.elapsed_time(b), rel=0.02)
+            (tail,) = [g for g, _, _ in c.tails.values() if g.spans]
+            a, b = tail.spans[k]
+            assert sum(st[s] for s in TAIL) == pytest.approx(
+                a.elapsed_time(b), rel=0.02)
+
+
+@pytest.mark.cuda
+def test_register_pair_stage_timer(card):
+    """The eager ``register_pair`` with a :class:`StageTimer`: nine marks,
+    seven positive stage spans (IRLS on at the tiny plan)."""
+    cuda.build_all()
+    cfg, (pair, _) = _program_pairs("tiny", card)
+    model = BufferModel(cfg, seed=0).to(card)
+    draws = registration.make_draws(cfg, torch.Generator(card).manual_seed(1),
+                                    card)
+    timer = registration.StageTimer()
+    registration.register_pair(model, pair, draws, timer=timer)
+    ms = timer.stage_ms()
+    assert len(timer.events) == 9
+    assert tuple(ms) == registration.StageTimer.STAGES
+    assert all(v > 0 for v in ms.values()), ms
+
+
+@pytest.mark.cuda
+def test_program_outputs_equal_with_and_without_profiler(card):
+    """Poses and counts of the unrolled and the one-pair program, bit-equal
+    with ``torch.profiler`` running (the program's spans open) and without
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda.build_all()
+    cfg, pairs, draws = _three_pairs(card)
+    model = BufferModel(cfg, seed=0).to(card)
+    unrolled = registration.make_unrolled_register_fn(model, 3)
+    single = registration.make_register_fn(model)
+    calls = [lambda: unrolled(pairs, draws),
+             lambda: single(pairs[0], draws[0])]
+    for call in calls:
+        call()
+    plain = [registration._clone(call()) for call in calls]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = [registration._clone(call()) for call in calls]
+        torch.cuda.synchronize()
+    for p, t in zip(plain, traced):
+        assert all(torch.equal(a, b) for a, b in zip(p, t))
+    names = {e.name for e in prof.events()}
+    assert {"register.call", "register.load", "register.front",
+            "register.mutual_read", "register.tail",
+            "register.outputs"} <= names
 
 
 @pytest.mark.cuda
