@@ -12,6 +12,10 @@ import torch
 from buffer_tpu_torch.core.numerics import safe_norm, safe_normalize
 
 EPS = 1e-8
+# kabsch_quat's regulariser and power steps (the reference's; the CUDA
+# solver in kernels/pose_cuda.py takes the same)
+KABSCH_EPS = 1e-6
+KABSCH_ITERS = 60
 
 
 def transform(pts: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
@@ -160,7 +164,8 @@ def quaternion_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
 
 def kabsch_quat(A: torch.Tensor, B: torch.Tensor,
                 weights: torch.Tensor | None = None,
-                eps: float = 1e-6, iters: int = 60) -> torch.Tensor:
+                eps: float = KABSCH_EPS,
+                iters: int = KABSCH_ITERS) -> torch.Tensor:
     """Weighted rigid alignment by Horn's quaternion method: the rotation
     is the dominant eigenvector of the 4x4 Davenport matrix, found by
     shifted power iteration (the same iteration count and shift as the

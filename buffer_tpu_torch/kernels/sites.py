@@ -9,9 +9,11 @@ import contextlib
 
 def call_sites():
     """(module, attribute, plain version) of every kernel call site."""
-    from buffer_tpu_torch.kernels import fps_cuda, geom_cuda, knn_cuda
+    from buffer_tpu_torch.core import se3
+    from buffer_tpu_torch.kernels import fps_cuda, geom_cuda, knn_cuda, pose_cuda
     from buffer_tpu_torch.models import patch_embedder
     from buffer_tpu_torch.ops import neighbors, sampling
+    from buffer_tpu_torch.pipeline import ransac, refine
     return [(neighbors, "nearest_cuda", geom_cuda.nearest_plain),
             (neighbors, "banded_knn_cuda", knn_cuda.banded_knn_plain),
             (neighbors, "banded_nn1_cuda", knn_cuda.banded_nn1_plain),
@@ -21,7 +23,9 @@ def call_sites():
              geom_cuda.ball_sample_points_plain),
             (sampling, "fps_cuda_batched", fps_cuda.fps_plain),
             (sampling, "fps_cuda_single", fps_cuda.fps_single_plain),
-            (patch_embedder, "spt_pooled_cuda", geom_cuda.spt_pooled_plain)]
+            (patch_embedder, "spt_pooled_cuda", geom_cuda.spt_pooled_plain),
+            (ransac, "kabsch_cuda", se3.kabsch_quat),
+            (refine, "irls_cuda", pose_cuda.irls_plain)]
 
 
 @contextlib.contextmanager

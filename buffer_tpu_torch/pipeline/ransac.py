@@ -4,7 +4,9 @@ registration_ransac_based_on_correspondence, models/BUFFER.py:314-324).
 
 The 3-point draws are an input: Gumbel noise ``gumbel`` [H, 3, M], and
 each draw is ``argmax(where(valid, 0, -inf) + gumbel)`` -- exactly what
-``jax.random.categorical`` computes from its own Gumbel draws.
+``jax.random.categorical`` computes from its own Gumbel draws.  Both
+solves (every hypothesis at once, then the refit) call ``kabsch_cuda``
+through this module, where ``kernels/sites.py`` swaps in the plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from buffer_tpu_torch.core import se3
+from buffer_tpu_torch.kernels.pose_cuda import kabsch_cuda
 from buffer_tpu_torch.pipeline.matching import take, warp_sqdist
 
 
@@ -31,7 +33,7 @@ def ransac_pose(gumbel: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
     3 valid correspondences exist or no hypothesis survives."""
     idx = sample_triplets(valid, gumbel)
     a, b = src[idx], tgt[idx]                                  # [H, 3, 3]
-    T = se3.kabsch_quat(a, b)
+    T = kabsch_cuda(a, b)
     R, t = T[:, :3, :3], T[:, :3, 3]
 
     # checker 1: edge-length similarity; checker 2: the sample fits
@@ -49,7 +51,7 @@ def ransac_pose(gumbel: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
     inliers = take(inl, best)
     feasible = (torch.sum(valid) >= 3) & (take(counts, best) > 0)
     w = inliers.to(src.dtype)
-    refit_T = se3.kabsch_quat(src[None], tgt[None], w[None])[0]
+    refit_T = kabsch_cuda(src[None], tgt[None], w[None])[0]
     pose = torch.where(torch.sum(inliers) >= 3, refit_T, pose)
     eye = torch.eye(4, dtype=src.dtype, device=src.device)
     return torch.where(feasible, pose, eye), inliers & feasible

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from buffer_tpu_torch.core import se3
+from buffer_tpu_torch.kernels.pose_cuda import irls_cuda
 
 
 def post_refinement(pose: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
@@ -14,12 +14,6 @@ def post_refinement(pose: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
                     iters: int = 20) -> torch.Tensor:
     """``iters`` fixed rounds of inlier re-selection with Cauchy-like
     weights 1/(1 + (d/th)^2) and a weighted Kabsch; a round with fewer than
-    3 inliers keeps the pose."""
-    for _ in range(iters):
-        warped = se3.transform(src[None], pose[None])[0]
-        d = torch.linalg.norm(warped - tgt, dim=-1)
-        inl = (d < inlier_threshold) & valid
-        w = (1.0 / (1.0 + (d / inlier_threshold) ** 2)) * inl
-        new = se3.kabsch_quat(src[None], tgt[None], w[None])[0]
-        pose = torch.where(torch.sum(inl) >= 3, new, pose)
-    return pose
+    3 inliers keeps the pose.  Every round in one call of ``irls_cuda``
+    through this module (``kernels/sites.py`` swaps in the plain loop)."""
+    return irls_cuda(pose, src, tgt, valid, inlier_threshold, iters)

@@ -518,7 +518,8 @@ class _GraphProgram:
         with torch.no_grad(), full_fp32(), torch.cuda.stream(self.stream):
             # warm-up: an eager run, both tails included (first-use builds,
             # handles and attributes happen here, not during capture); its
-            # result is the first call's
+            # result is the first call's.  The tail the pair does not take
+            # runs too, so the first call also counts that tail's launches
             self._load(inputs, draws)
             front, inter = pair_front(model, self.inputs, self.draws)
             boost = boost_taken(self.cfg, front.num_mutual)

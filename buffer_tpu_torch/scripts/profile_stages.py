@@ -29,9 +29,10 @@ budget; a difference raises.
 Prints one JSON line: the card (name, power limit), each row's ms, the sum
 of the front rows and the taken budget's tail rows beside the device ms of
 a ``make_register_fn`` replay on the same pair and draws (CUDA events), the
-tail the pair takes, each ``kabsch_quat`` call of the taken tail with its
-batch shape, count and ms, and the kernels' launches over one pass of the
-rows.  Runs on the CUDA card only.
+tail the pair takes, each pose-solver call of the taken tail
+(``kabsch_cuda``: RANSAC's hypotheses and refit; ``irls_cuda``: every IRLS
+round) with its shape, count and ms, and the kernels' launches over one
+pass of the rows.  Runs on the CUDA card only.
 """
 
 from __future__ import annotations
@@ -207,27 +208,34 @@ def recorded(mod, name: str, calls: list):
         setattr(mod, name, fn)
 
 
-def kabsch_calls(rows: Sequence[Row], budget: str) -> list:
-    """Each distinct ``kabsch_quat`` call of ``budget``'s RANSAC and IRLS
-    rows (one eager pass): the row, the batch shape of its points, whether
-    weighted, how often the row makes it, and the recorded arguments."""
-    from buffer_tpu_torch.core import se3
+def pose_calls(rows: Sequence[Row], budget: str) -> list:
+    """Each distinct pose-solver call of ``budget``'s RANSAC and IRLS rows
+    (one eager pass): the row, the wrapper (``kabsch_cuda``, ``irls_cuda``),
+    the shape of its points, whether weighted (Kabsch) or its rounds
+    (IRLS), how often the row makes it, and the recorded arguments."""
+    from buffer_tpu_torch.pipeline import ransac, refine
     out = []
     for r in rows:
         if not r.name.endswith(f"({budget})"):
             continue
-        calls: list = []
-        with recorded(se3, "kabsch_quat", calls):
+        calls = {"kabsch_cuda": [], "irls_cuda": []}
+        with recorded(ransac, "kabsch_cuda", calls["kabsch_cuda"]), \
+                recorded(refine, "irls_cuda", calls["irls_cuda"]):
             r.body()
         kinds = {}
-        for args, kwargs in calls:
-            w = args[2] if len(args) > 2 else kwargs.get("weights")
-            key = (tuple(args[0].shape), w is not None)
-            if key not in kinds:
-                kinds[key] = {"row": r.name, "points": list(key[0]),
-                              "weighted": key[1], "calls": 0,
-                              "args": (args, kwargs)}
-            kinds[key]["calls"] += 1
+        for wrapper, made in calls.items():
+            for args, kwargs in made:
+                if wrapper == "kabsch_cuda":
+                    w = args[2] if len(args) > 2 else kwargs.get("weights")
+                    how = {"weighted": w is not None}
+                else:
+                    how = {"rounds": args[5]}
+                key = (wrapper, tuple(args[1].shape), *how.values())
+                if key not in kinds:
+                    kinds[key] = {"row": r.name, "wrapper": wrapper,
+                                  "points": list(args[1].shape), **how,
+                                  "calls": 0, "args": (args, kwargs)}
+                kinds[key]["calls"] += 1
         out += list(kinds.values())
     return out
 
@@ -250,8 +258,7 @@ def replay_device_ms(fn, inputs, draws, reps: int = 3) -> float:
 
 def run(cfg, model, inputs, draws, dev) -> dict:
     """The profile of one pair (see the module's docstring) as a dict."""
-    from buffer_tpu_torch.core import se3
-    from buffer_tpu_torch.kernels import cuda
+    from buffer_tpu_torch.kernels import cuda, pose_cuda
     from buffer_tpu_torch.pipeline import registration as reg
     from buffer_tpu_torch.utils.profiling import graph_time
     budgets = (False, True) if cfg.static.low_match_boost else (False,)
@@ -266,11 +273,12 @@ def run(cfg, model, inputs, draws, dev) -> dict:
                                f"the eager pair in {bad}")
         num_mutual = torch.sum(chained[0]["matches"].mutual)
         taken = budget_name(reg.boost_taken(cfg, num_mutual))
-        kabsch = kabsch_calls(rows, taken)
-        for k in kabsch:
+        solves = pose_calls(rows, taken)
+        for k in solves:
             args, kwargs = k.pop("args")
-            k["ms_a_call"] = graph_time(lambda a=args, kw=kwargs:
-                                        se3.kabsch_quat(*a, **kw))
+            wrapper = getattr(pose_cuda, k["wrapper"])
+            k["ms_a_call"] = graph_time(lambda f=wrapper, a=args, kw=kwargs:
+                                        f(*a, **kw))
         timed = [{"name": r.name, "ms": graph_time(r.body)} for r in rows]
     fn = reg.make_register_fn(model, device=dev)
     fn(inputs, draws)
@@ -283,8 +291,8 @@ def run(cfg, model, inputs, draws, dev) -> dict:
             "sum_ms": sum_ms, "replay_device_ms": replay_ms,
             "sum_over_replay": sum_ms / replay_ms,
             "tail_taken": taken, "num_mutual": int(num_mutual),
-            "kabsch_calls": kabsch,
-            "kabsch_ms": sum(k["ms_a_call"] * k["calls"] for k in kabsch),
+            "pose_calls": solves,
+            "pose_ms": sum(k["ms_a_call"] * k["calls"] for k in solves),
             "chain_bit_equal": True, "launches_a_pass": launches,
             "notes": ["MiniSpinNet: both clouds in one batch of 2K patches "
                       "(the JAX script's row is one cloud, run twice)",

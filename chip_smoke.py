@@ -221,7 +221,12 @@
    this run's inputs, and, on a line of derived figures of its own, the
    issue floor of the banded kNN, ball sampling and both 1-NN kernels (this
    run's tests x issue slots a test, counted by hand in the inner loops,
-   over every fp32 lane at the card's maximum SM clock).
+   over every fp32 lane at the card's maximum SM clock).  The pose solver
+   (``kabsch_cuda``, ``irls_cuda``) on every call of the bench pair's boost
+   tail and of the KITTI pair's base tail, each held with its plain
+   version to the plain version in float64 (the kernel sums in another
+   order, so the gate is its largest gap there: at most 4 times the plain
+   version's, plus 1e-5), both timed.
 
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds every kernel's
@@ -261,19 +266,29 @@ N_KITTI_PAIRS = 2
 KITTI_SEED = 13
 RECALL_KNN = 0.97            # tests/test_geom_pallas.py:143
 AGREE_NN1 = 0.99
+# the pose solver's kernels sum in another order than their plain versions,
+# and RANSAC's hypotheses include ill-conditioned triplets (repeated or
+# nearly collinear points), where both land up to ~1e-4 from the float64
+# solve: a kernel's largest gap to the float64 solve may be at most
+# POSE_FACTOR times the plain version's, plus POSE_FLOOR
+POSE_FACTOR, POSE_FLOOR = 4.0, 1e-5
 # launches per pair of each kernel on each path (ops/neighbors.py dispatch):
 # 3DMatch bands l0/l1 kNN and both pools (l2 has 3072 points, under the
 # band), KITTI also l2 (6144 points under its 64-row window); both take the
-# banded 1-NN for l0 -> l1 and the exact one for l1 -> l2
+# banded 1-NN for l0 -> l1 and the exact one for l1 -> l2.  Every tail makes
+# RANSAC's two Kabsch solves (the hypotheses, the refit) and, where the
+# preset refines the pose (test.pose_refine), one IRLS launch
+TAIL = {"kabsch": 2}
+REFINED_TAIL = {"kabsch": 2, "irls": 1}
 PER_PAIR = {
     "3DMatch": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
-                "ball_sample": 1, "spt_pooled": 1},
+                "ball_sample": 1, "spt_pooled": 1, **REFINED_TAIL},
     "KITTI": {"bknn": 5, "bnn1": 1, "nearest": 1, "fps": 1, "ball_sample": 1,
-              "spt_pooled": 1},
+              "spt_pooled": 1, **TAIL},
     "3DMatch knn_band=0": {"nearest": 2, "fps": 1, "ball_sample": 1,
-                           "spt_pooled": 1},
+                           "spt_pooled": 1, **REFINED_TAIL},
     "3DMatch fused_desc=False": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
-                                 "ball_sample_points": 1},
+                                 "ball_sample_points": 1, **REFINED_TAIL},
     "farthest_point_sample": {"fps_single": 1},
 }
 # the eval path: pairs of each tree, the 3DMatch fragments' x slabs of the
@@ -304,8 +319,10 @@ STEP_LAUNCHES = {"3DMatch": TRAIN_STEP, "KITTI": KITTI_TRAIN_STEP}
 PER_PAIR["3DMatch device levels"] = PER_PAIR["3DMatch"]
 # the presets through the test entry point, one pair each: ThreeD2ETH and
 # KITTI2ThreeD have 3DMatch's static plan, ThreeD2KITTI KITTI's bands
-# (its 16384-point level 1 is banded like KITTI's 20480)
-PER_PAIR.update({"ThreeD2ETH": PER_PAIR["3DMatch"],
+# (its 16384-point level 1 is banded like KITTI's 20480); ThreeD2ETH does
+# not refine the pose, KITTI2ThreeD does
+PER_PAIR.update({"ThreeD2ETH": {k: v for k, v in PER_PAIR["3DMatch"].items()
+                                if k != "irls"},
                  "KITTI2ThreeD": PER_PAIR["3DMatch"],
                  "ThreeD2KITTI": PER_PAIR["KITTI"]})
 EVAL_PAIRS.update({"ThreeD2ETH": 1, "KITTI2ThreeD": 1, "ThreeD2KITTI": 1})
@@ -314,7 +331,8 @@ EVAL_PAIRS.update({"ThreeD2ETH": 1, "KITTI2ThreeD": 1, "ThreeD2KITTI": 1})
 # window covers the support), but the l0 -> l1 1-NN's 2048-point support is
 # under twice the band, so both upsamples take the exact 1-NN
 PER_PAIR["train_then_register"] = {"bknn": 4, "nearest": 2, "fps": 1,
-                                   "ball_sample": 1, "spt_pooled": 1}
+                                   "ball_sample": 1, "spt_pooled": 1,
+                                   **REFINED_TAIL}
 # the train entry's trees: 3DMatch fragments (x slabs of one wavy surface
 # a scene) paired consecutively in the overlap file; a KITTI sequence a
 # split of scans EVAL_SCAN_GAP apart, which pair mining turns into pairs
@@ -340,7 +358,8 @@ DP_TRAIN_STEPS = 3
 DP_TIMEOUT = 300.0
 # the synthetic evaluation's exact stack: unbanded search (the exact 1-NN
 # for both upsamples) and the sampled descriptor front
-SYNTH_EXACT_PAIR = {"nearest": 2, "fps": 1, "ball_sample_points": 1}
+SYNTH_EXACT_PAIR = {"nearest": 2, "fps": 1, "ball_sample_points": 1,
+                    **REFINED_TAIL}
 # the compiled program (make_register_fn): the kernels each launch counter
 # stands for, by their __global__ names in csrc/ (a profile of a replay
 # must show each as often as its counter rose), the replays timed a
@@ -351,7 +370,8 @@ GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "fps_single": ("fps_cluster_kernel",),
            "ball_sample": ("ball_pack_kernel", "ball_kernel"),
            "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
-           "spt_pooled": ("spt_kernel",)}
+           "spt_pooled": ("spt_kernel",), "kabsch": ("kabsch_kernel",),
+           "irls": ("irls_kernel",)}
 PROGRAM_TIMED = 6
 # the unrolled program (make_unrolled_register_fn): the pairs a call of
 # each preset's runs, U = 1 first (the others are read beside it)
@@ -416,6 +436,31 @@ def bound(flops: float, nbytes: float):
     bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def warmup_launches(cfg, chains: int) -> dict:
+    """What ``chains`` newly built registration chains launch beyond their
+    pairs: each one's warm-up before its captures also runs the tail of the
+    budget its pair does not take (with ``static.low_match_boost``), and
+    every tail launches the same kernels (TAIL, or REFINED_TAIL with
+    ``test.pose_refine``)."""
+    if not (chains and cfg.static.low_match_boost):
+        return {}
+    tail = REFINED_TAIL if cfg.test.pose_refine else TAIL
+    return {k: chains * v for k, v in tail.items()}
+
+
+def chains_built(fn) -> int:
+    """The graph chains that a registration program ``fn`` holds: one a
+    signature of ``make_register_fn``, U of ``make_unrolled_register_fn``
+    (none on the CPU, where ``fn`` is eager)."""
+    return sum(len(getattr(p, "chains", (p,)))
+               for p in getattr(fn, "programs", {}).values())
+
+
+def plus(a: dict, b: dict, sign: int = 1) -> dict:
+    """``a`` with ``b`` added (``sign`` -1: taken away), key by key."""
+    return {k: a.get(k, 0) + sign * b.get(k, 0) for k in {*a, *b}}
 
 
 def check_launches(path: str, rose: dict, want: dict = None) -> None:
@@ -496,6 +541,77 @@ def path_line(path: str, cfg, launches, per_pair, results, stages, prep_s,
             "launches": launches}
     print(json.dumps(line))
     return line
+
+
+def tail_pose_calls(cfg, model, inputs, draws) -> dict:
+    """The pose-solver calls of the pair's taken tail, each as its
+    positional arguments: {"kabsch_cuda": [...], "irls_cuda": [...]}."""
+    import torch
+    from buffer_tpu_torch.pipeline import ransac, refine
+    from buffer_tpu_torch.pipeline import registration as reg
+    calls = {"kabsch_cuda": [], "irls_cuda": []}
+    with torch.no_grad(), reg.full_fp32():
+        front, _ = reg.pair_front(model, inputs, draws)
+        budget = reg.tail_budget(cfg, draws, reg.boost_taken(cfg, front.num_mutual))
+        with capture(ransac, "kabsch_cuda", calls["kabsch_cuda"]), \
+                capture(refine, "irls_cuda", calls["irls_cuda"]):
+            reg.pair_tail(cfg, front, *budget)
+    return calls
+
+
+def pose_work(name: str, args):
+    """(flops, bytes) of a pose-solver call: a solve takes 40 flops a point
+    (13 for the weight sums, 27 for H) and ~2500 for the centroids, the
+    Davenport matrix, 60 power steps of ~40 and R, t; an IRLS round
+    besides 33 a point for the warp, the distance and the weight, and 1 for
+    the inlier count; each input byte read once, each pose written once."""
+    if name == "kabsch":
+        A = args[0]
+        bs, N = A.shape[:2]
+        weighted = len(args) > 2 and args[2] is not None
+        return bs * (40 * N + 2500), bs * (N * (24 + 4 * weighted) + 64)
+    src, rounds = args[1], args[5]
+    K = src.shape[0]
+    return rounds * (74 * K + 2500), K * 25 + 2 * 64
+
+
+def pose_entries(calls) -> dict:
+    """Each pose-solver wrapper over ``calls`` (``tail_pose_calls``): kernel
+    and plain version against the plain version in float64 (the kernel's
+    largest pose gap within POSE_FACTOR times the plain version's plus
+    POSE_FLOOR), the largest gap between the two, each timed by CUDA events
+    (sums over the calls), the work and shapes."""
+    import torch
+    from buffer_tpu_torch.core import se3
+    from buffer_tpu_torch.kernels import pose_cuda
+    wide = lambda a: [x.double() if torch.is_tensor(x) and x.is_floating_point()
+                      else x for x in a]
+    gap = lambda x, y: float((x.double() - y.double()).abs().max())
+    out = {}
+    for name, kern, plain in (
+            ("kabsch", pose_cuda.kabsch_cuda, se3.kabsch_quat),
+            ("irls", pose_cuda.irls_cuda, pose_cuda.irls_plain)):
+        e = {"err": 0.0, "err_f64": 0.0, "plain_err_f64": 0.0, "ms": 0.0,
+             "plain_ms": 0.0, "flops": 0, "bytes": 0, "calls": []}
+        for a in calls[f"{name}_cuda"]:
+            got, want, exact = kern(*a), plain(*a), plain(*wide(a))
+            acc, acc_plain = gap(got, exact), gap(want, exact)
+            if not acc <= POSE_FACTOR * acc_plain + POSE_FLOOR:
+                raise RuntimeError(
+                    f"{name}: the kernel's pose lies {acc} from the float64 "
+                    f"solve, the plain version's {acc_plain}, at "
+                    f"{tuple(a[1].shape)}")
+            e["err"] = max(e["err"], gap(got, want))
+            e["err_f64"] = max(e["err_f64"], acc)
+            e["plain_err_f64"] = max(e["plain_err_f64"], acc_plain)
+            e["ms"] += cuda_ms(lambda a=a: kern(*a), 20)
+            e["plain_ms"] += cuda_ms(lambda a=a: plain(*a), 3)
+            flops, nbytes = pose_work(name, a)
+            e["flops"] += flops
+            e["bytes"] += nbytes
+            e["calls"].append(list(a[1].shape) + ([a[5]] if name == "irls" else []))
+        out[name] = e
+    return out
 
 
 def plain_path_check(path: str, model, dev, inputs, draws, kernel_run) -> dict:
@@ -1256,7 +1372,9 @@ def recorded_programs(mod, calls: list):
     ``mod.make_register_fn`` or ``mod.make_unrolled_register_fn`` makes
     records each pair of its calls in ``calls``: the model, inputs, draws,
     the ``RegistrationResult``, the milliseconds (host clock up to a
-    synchronize), the launches it made, and the group (``U``, ``slot``).
+    synchronize), the launches it made, the part of them that the chains
+    built in the call launched in their warm-up beyond the pair
+    (``warmup``, :func:`warmup_launches`), and the group (``U``, ``slot``).
     An unrolled call is recorded a pair a slot, with the call's ms and
     launches over U (a group launches U times one pair's table: a rise
     that U does not divide raises); a padded slot (the slot before's very
@@ -1285,10 +1403,12 @@ def recorded_programs(mod, calls: list):
         dev = resolve_device(device)
 
         def recorded(inputs, draws):
+            built = chains_built(fn)
             out, res, ms, rose = timed(fn, dev, (inputs, draws))
+            warm = warmup_launches(model.cfg, chains_built(fn) - built)
             calls.append({"model": model, "inputs": inputs, "draws": draws,
                           "result": res, "ms": ms, "launches": rose,
-                          "U": 1, "slot": 0})
+                          "warmup": warm, "U": 1, "slot": 0})
             return out
 
         return recorded
@@ -1298,7 +1418,11 @@ def recorded_programs(mod, calls: list):
         dev = resolve_device(device)
 
         def recorded(inputs_list, draws_list):
+            built = chains_built(fn)
             out, res, ms, rose = timed(fn, dev, (inputs_list, draws_list))
+            # a slot's share: the programs built in the call, a chain each
+            warm = warmup_launches(model.cfg,
+                                   (chains_built(fn) - built) // unroll)
             if any(v % unroll for v in rose.values()):
                 raise RuntimeError(f"an unrolled call of {unroll} pairs "
                                    f"launched {rose}")
@@ -1311,7 +1435,7 @@ def recorded_programs(mod, calls: list):
                               "ms": ms / unroll,
                               "launches": {k: v // unroll
                                            for k, v in rose.items()},
-                              "U": unroll, "slot": u})
+                              "warmup": warm, "U": unroll, "slot": u})
             return out
 
         return recorded
@@ -1363,7 +1487,8 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
         raise RuntimeError(f"{name}: {out['pairs']} pairs, {len(calls)} "
                            f"registrations, expected {n}")
     for c in calls:
-        check_launches(preset, c["launches"])
+        check_launches(preset, c["launches"], plus(PER_PAIR[preset],
+                                                   c["warmup"]))
     # run_eval groups the pairs by the preset's pair_unroll (one pair: 1)
     U = make_cfg(preset).static.pair_unroll if n > 1 else 1
     if [c["U"] for c in calls] != [U] * n:
@@ -1414,8 +1539,8 @@ def eval_run(dev, preset: str, root: str, flag: str, weights: str, log_dir: str,
             "data_ms_per_pair": 1e3 * out["data_time"], "wall_s": wall,
             "recall": out["recall"], "TE": out["TE"], "RE": out["RE"],
             "registration_recall": rr,
-            "launches_per_pair": {k: v for k, v in calls[0]["launches"].items()
-                                  if v},
+            "launches_per_pair": {k: v for k, v in plus(
+                first["launches"], first["warmup"], -1).items() if v},
             "register_ms": [c["ms"] for c in calls],
             "pair_unroll": [c["U"] for c in calls],
             "eligible_keypoints": n_kpts,
@@ -1722,15 +1847,16 @@ def ttr_path(dev) -> dict:
         rc = ttr.main([*TTR_ARGS, "--device", str(dev), "--out", base,
                        "--json", rec_path])
     wall = time.time() - t0
-    pairs = [c["launches"] for c in calls]
+    pairs = [plus(c["launches"], c["warmup"], -1) for c in calls]
+    for c in calls:
+        check_launches("train_then_register", c["launches"],
+                       plus(PER_PAIR["train_then_register"], c["warmup"]))
     with open(rec_path) as f:
         rec = json.load(f)
     n_eval = int(TTR_ARGS[TTR_ARGS.index("--eval-pairs") + 1])
     if rc != 0 or len(pairs) != n_eval or rec["pairs"] != n_eval:
         raise RuntimeError(f"train_then_register: rc {rc}, {len(pairs)} "
                            f"registrations, record {rec}")
-    for rose in pairs:
-        check_launches("train_then_register", rose)
     if not (math.isfinite(rec["value"]) and all(
             math.isfinite(v) for v in rec["diagnosis"].values())):
         raise RuntimeError(f"train_then_register: non-finite record {rec}")
@@ -1900,7 +2026,8 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
     """The compiled program (``make_register_fn``) on a path's pairs and
     draws, every count set to 0 just before and read just after: two
     passes over the pairs (the first warms and captures, the second
-    replays), every call launching the path's table and every replay
+    replays), every call launching the path's table (a call that builds a
+    program, its warm-up's untaken tail besides) and every replay
     bit-equal to ``eager`` (``register_pair``'s results on the same pairs
     and draws); every result still holding its values after the calls that
     follow it; one replay under ``torch.profiler`` showing each kernel as
@@ -1918,7 +2045,7 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
     kept, first_ms = [], None
     for n_pass in range(2):
         for i, (inputs, dr) in enumerate(zip(pairs, draws)):
-            before = cuda.launch_counts()
+            before, built = cuda.launch_counts(), chains_built(fn)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = fn(inputs, dr)
@@ -1926,13 +2053,17 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
             if first_ms is None:
                 first_ms = 1e3 * (time.perf_counter() - t0)
             after = cuda.launch_counts()
-            check_launches(path, {k: after[k] - before[k] for k in after}, table)
+            check_launches(path, {k: after[k] - before[k] for k in after},
+                           plus(table, warmup_launches(
+                               cfg, chains_built(fn) - built)))
             if not results_equal(res, eager[i]):
                 raise RuntimeError(f"{path}: pass {n_pass} pair {i} differs "
                                    "from register_pair")
             kept.append((res, i))
     counts = cuda.launch_counts()
-    if counts != {k: 2 * len(pairs) * table.get(k, 0) for k in counts}:
+    warm = warmup_launches(cfg, chains_built(fn))
+    if counts != {k: 2 * len(pairs) * table.get(k, 0) + warm.get(k, 0)
+                  for k in counts}:
         raise RuntimeError(f"{path}: launches {counts} over {2 * len(pairs)} "
                            "calls")
     for res, i in kept:
@@ -2109,7 +2240,9 @@ def unrolled_run(path: str, dev, model, pairs, draws, eager, U: int,
     (the last padded with its last pair, as ``run_eval`` pads), every count
     set to 0 just before and read just after: two passes (the first warms
     and captures, the second replays), every call launching U times the
-    table, every pair bit-equal to ``eager`` (``register_pair``'s results,
+    table (a call that builds the program, its chains' warm-up of the
+    untaken tail besides), every pair bit-equal to ``eager``
+    (``register_pair``'s results,
     which ``program_path`` holds ``make_register_fn``'s to), every result
     holding its values after the calls that follow it, one host
     synchronization a replayed call, a stream and a memory pool a chain.
@@ -2139,7 +2272,7 @@ def unrolled_run(path: str, dev, model, pairs, draws, eager, U: int,
     kept, syncs, first_ms = [], [], None
     for n_pass in range(2):
         for g in groups:
-            before = cuda.launch_counts()
+            before, built = cuda.launch_counts(), chains_built(fn)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             call = lambda: fn([pairs[i] for i in g], [draws[i] for i in g])
@@ -2149,7 +2282,8 @@ def unrolled_run(path: str, dev, model, pairs, draws, eager, U: int,
                 first_ms = 1e3 * (time.perf_counter() - t0)
             after = cuda.launch_counts()
             check_launches(path, {k: after[k] - before[k] for k in after},
-                           want_call)
+                           plus(want_call, warmup_launches(
+                               model.cfg, chains_built(fn) - built)))
             if n_pass:
                 syncs.append(synced)
             for u, i in enumerate(g):
@@ -2162,7 +2296,9 @@ def unrolled_run(path: str, dev, model, pairs, draws, eager, U: int,
         raise RuntimeError(f"{path}: host synchronizations a replayed call "
                            f"{syncs}, expected 1")
     counts = cuda.launch_counts()
-    if counts != {k: 2 * len(groups) * want_call.get(k, 0) for k in counts}:
+    warm = warmup_launches(model.cfg, chains_built(fn))
+    if counts != {k: 2 * len(groups) * want_call.get(k, 0) + warm.get(k, 0)
+                  for k in counts}:
         raise RuntimeError(f"{path}: launches {counts} over "
                            f"{2 * len(groups)} calls")
     for res, g in kept:
@@ -2309,11 +2445,12 @@ def bench_path(dev, programs) -> dict:
     for config in ("3DMatch", "KITTI"):
         # keep the last call's results only: recorded_programs would
         # synchronize inside the timed runs
-        last = []
+        last, fns = [], []
         make = registration.make_unrolled_register_fn
 
         def keeping(model, unroll, device=None, **kw):
             fn = make(model, unroll, device=device, **kw)
+            fns.append(fn)
 
             def kept(inputs_list, draws_list):
                 res = fn(inputs_list, draws_list)
@@ -2355,8 +2492,12 @@ def bench_path(dev, programs) -> dict:
             raise RuntimeError(f"bench {config}: a timed replay launched "
                                f"{ex['launches_per_pair']} a pair, expected "
                                f"{table}")
-        check_launches(f"{config} bench", {k: v / (ex["calls"] * PU)
-                                           for k, v in counts.items()}, table)
+        # every call a pair's table, and the first one's warm-up of the
+        # untaken tail in every chain it built
+        check_launches(f"{config} bench", counts, plus(
+            {k: ex["calls"] * PU * v for k, v in table.items()},
+            warmup_launches(make_cfg(config),
+                            sum(chains_built(f) for f in fns))))
         if (ex["platform"], ex["weights"], ex["config"]) != ("gpu", "random",
                                                              config):
             raise RuntimeError(f"bench {config}: {ex}")
@@ -2423,16 +2564,19 @@ def profiles_path(dev, model, pair, draws) -> dict:
         line = script_line(profile_stages.main, ["--config", config])
         if line["chain_bit_equal"] is not True:
             raise RuntimeError(f"profile_stages {config}: rows not bit-equal")
-        check_launches(f"{config} stage rows", line["launches_a_pass"],
-                       PER_PAIR[config])
+        # the rows run the tail of both budgets: two tails' pose solves
+        table = dict(PER_PAIR[config])
+        for k in TAIL if config == "KITTI" else REFINED_TAIL:
+            table[k] *= 2
+        check_launches(f"{config} stage rows", line["launches_a_pass"], table)
         rows_ok(f"profile_stages {config}", line["rows"]
-                + [{"name": "kabsch_quat", "ms": line["kabsch_ms"]},
+                + [{"name": "pose solver", "ms": line["pose_ms"]},
                    {"name": "replay", "ms": line["replay_device_ms"]}])
         print(json.dumps({"profile_stages": config, "rows": {
             r["name"]: r["ms"] for r in line["rows"]}, "sum_ms": line["sum_ms"],
             "replay_device_ms": line["replay_device_ms"],
-            "tail_taken": line["tail_taken"], "kabsch_ms": line["kabsch_ms"],
-            "kabsch_calls": line["kabsch_calls"]}), flush=True)
+            "tail_taken": line["tail_taken"], "pose_ms": line["pose_ms"],
+            "pose_calls": line["pose_calls"]}), flush=True)
         out[f"stages {config}"] = line
     micro = script_line(profile_micro.main, ["--config", "3DMatch"])
     if micro["chain_bit_equal"] is not True:
@@ -2503,8 +2647,10 @@ def dp_register_path(dev, cfg, model, pairs, draws, results) -> dict:
                                    backend, dev, iters=iters, warmup=DP_WARMUP,
                                    timeout=DP_TIMEOUT, threads=cpu_threads(dev))
         for r in ranks:
-            for rose in r["launches"]:
-                check_launches("3DMatch", rose)
+            # a rank's first round builds its program (one chain)
+            for j, rose in enumerate(r["launches"]):
+                check_launches("3DMatch", rose, plus(
+                    PER_PAIR["3DMatch"], warmup_launches(cfg, int(j == 0))))
             for i in range(n):
                 if (not torch.equal(r["pose"][i], results[i].pose.cpu())
                         or int(r["num_mutual"][i]) != int(results[i].num_mutual)):
@@ -2516,7 +2662,7 @@ def dp_register_path(dev, cfg, model, pairs, draws, results) -> dict:
                 "round_ms": [r["round_ms"] for r in ranks],
                 "peak_mem_bytes": [r.get("peak_mem_bytes") for r in ranks],
                 "launches_per_pair": {k: v for k, v in
-                                      ranks[0]["launches"][0].items() if v}}
+                                      ranks[0]["launches"][-1].items() if v}}
         print(json.dumps(line))
         runs[name] = line
     w1, w2 = runs["world 1 gloo"]["pairs_per_s"], runs["world 2 gloo"]["pairs_per_s"]
@@ -2713,7 +2859,7 @@ def synthetic_path(roots: dict) -> dict:
                  os.path.join(snaps, f"snapshot_{preset}"), "--json", rec_path,
                  "--per-pair-json", pp_path])
         wall = time.time() - t0
-        calls = [(r["ms"], r["launches"]) for r in records]
+        calls = [(r["ms"], r["launches"], r["warmup"]) for r in records]
         with open(rec_path) as f:
             (rec,) = [json.loads(ln) for ln in f]
         with open(pp_path) as f:
@@ -2721,8 +2867,8 @@ def synthetic_path(roots: dict) -> dict:
         if rc != 0 or len(calls) != n_pairs or len(per_pair) != n_pairs:
             raise RuntimeError(f"synthetic eval {name}: rc {rc}, {len(calls)} "
                                f"registrations, {len(per_pair)} records")
-        for _, rose in calls:
-            check_launches(f"synthetic eval {name}", rose, table)
+        for _, rose, warm in calls:
+            check_launches(f"synthetic eval {name}", rose, plus(table, warm))
         for bucket, b in rec["buckets"].items():
             pp = [p for p in per_pair if p["bucket"] == bucket]
             if b["pairs"] != len(pp) or b["recall"] != round(
@@ -2734,7 +2880,8 @@ def synthetic_path(roots: dict) -> dict:
                 "per_pair": per_pair, "register_ms": ms,
                 "ms_per_pair": sum(ms[1:] or ms) / len(ms[1:] or ms),
                 "wall_s": wall,
-                "launches_per_pair": {k: v for k, v in calls[0][1].items() if v}}
+                "launches_per_pair": {k: v for k, v in plus(
+                    calls[0][1], calls[0][2], -1).items() if v}}
         print(json.dumps(line))
         lines.append(line)
     return {"runs": lines}
@@ -2930,7 +3077,9 @@ def last_modules_path(dev, cfg, kcfg, model, pair, draws, pose_gt, eager,
         res = fn(dpair, ddraws)
         torch.cuda.synchronize()
         program_ms.append(1e3 * (time.perf_counter() - t0))
-        check_launches(path, cuda.launch_counts(), table)
+        # the first call builds the program (one chain)
+        check_launches(path, cuda.launch_counts(),
+                       plus(table, warmup_launches(dcfg, int(i == 0))))
         if not results_equal(res, dres):
             raise RuntimeError(f"{path}: program call {i} differs from "
                                "register_pair")
@@ -3709,6 +3858,23 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
           ptxas=ptxas["ball_sample_points"])
     floor("ball_sample_points", BALL_SLOTS, tests=tests,
           tests_sampled=tests_sampled)
+    # 9.-10. the pose solver: every call of the bench pair's taken tail
+    # (boost: the hypotheses, the refit, 20 IRLS rounds) and, checked and
+    # timed, of the KITTI pair's (base: the two Kabsch solves)
+    from buffer_tpu_torch.kernels import pose_cuda
+    from buffer_tpu_torch.scripts.profile_stages import profile_pair
+    ppair, _, pdraws = profile_pair(cfg, dev)
+    solver = pose_entries(tail_pose_calls(cfg, model, ppair, pdraws))
+    ksolver = pose_entries(tail_pose_calls(kcfg, kmodel, kpairs[0], kdraws[0]))
+    del ppair, pdraws
+    for kern in (pose_cuda.KABSCH, pose_cuda.IRLS):
+        e, ke = solver[kern.name], ksolver[kern.name]
+        entry(kern, counts[kern.name], max(e["err"], ke["err"]), e["ms"],
+              e["plain_ms"], e["flops"], e["bytes"], None, calls=e["calls"],
+              err_f64=e["err_f64"], plain_err_f64=e["plain_err_f64"],
+              ms_kitti=ke["ms"], plain_ms_kitti=ke["plain_ms"],
+              calls_kitti=ke["calls"], err_f64_kitti=ke["err_f64"],
+              plain_err_f64_kitti=ke["plain_err_f64"], ptxas=ptxas[kern.name])
     derived = {"sm_clock_mhz": clock / 1e6, "sms": SMS, "fp32_lanes": LANES,
                "kernels": floors}
     print(json.dumps({"issue_floor": derived}))

@@ -25,6 +25,7 @@ import buffer_tpu_torch.config as tconfig
 from buffer_tpu_torch.core import gridmath, se3
 from buffer_tpu_torch.data import preprocess
 from buffer_tpu_torch.data.host import voxel_subsample_host
+from buffer_tpu_torch.kernels import pose_cuda
 from buffer_tpu_torch.ops import neighbors, normals
 
 torch.set_num_threads(1)
@@ -96,6 +97,10 @@ def test_kabsch_quat_matches(zero_weights):
         w[:4] = 0.0
     got = se3.kabsch_quat(_t(A), _t(B), _t(w)).numpy()
     want = np.asarray(jse3.kabsch_quat(jnp.asarray(A), jnp.asarray(B), jnp.asarray(w)))
+    # on CPU tensors the batched Kabsch wrapper is kabsch_quat, weighted or not
+    np.testing.assert_array_equal(pose_cuda.kabsch_cuda(_t(A), _t(B), _t(w)).numpy(), got)
+    np.testing.assert_array_equal(pose_cuda.kabsch_cuda(_t(A), _t(B)).numpy(),
+                                  se3.kabsch_quat(_t(A), _t(B)).numpy())
     assert np.isfinite(got).all()
     # 60 fp32 power iterations in two frameworks: 1e-4 on unit-scale poses
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

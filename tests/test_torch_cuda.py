@@ -8,16 +8,19 @@ runs where JAX is not installed:
 """
 
 import dataclasses
+import statistics
 import time
 
 import numpy as np
 import pytest
 import torch
 
-from buffer_tpu_torch.config import threedmatch_cfg, tiny_cfg
+from buffer_tpu_torch.config import kitti_cfg, threedmatch_cfg, tiny_cfg
+from buffer_tpu_torch.core import se3
 from buffer_tpu_torch.data.preprocess import morton_sort
 from buffer_tpu_torch.data.synthetic import surface_pair
-from buffer_tpu_torch.kernels import cuda, fps_cuda, geom_cuda, knn_cuda, sites
+from buffer_tpu_torch.kernels import (cuda, fps_cuda, geom_cuda, knn_cuda,
+                                      pose_cuda, sites)
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.pipeline import registration
 from buffer_tpu_torch.utils import profiling
@@ -469,6 +472,163 @@ def test_bnn1_and_nearest_bad_plans_raise(card):
             geom_cuda.nearest_launcher(sup, sup, sv, outs, plan)()
 
 
+def _rigid_set(rs, bs, n, noise, outliers=0):
+    """bs sets of n source points, their targets under one rotation and
+    translation with Gaussian noise, the last ``outliers`` of each moved
+    1-3 m away: (src, tgt) float32 arrays."""
+    q, _ = np.linalg.qr(rs.randn(3, 3))
+    q[:, 0] *= np.sign(np.linalg.det(q))
+    src = rs.uniform(-1.0, 1.0, (bs, n, 3))
+    tgt = src @ q.T + np.array([0.3, -0.2, 0.5]) + noise * rs.randn(bs, n, 3)
+    if outliers:
+        away = rs.randn(bs, outliers, 3)
+        away *= rs.uniform(1.0, 3.0, (bs, outliers, 1)) / np.linalg.norm(
+            away, axis=-1, keepdims=True)
+        tgt[:, n - outliers:] += away
+    return src.astype(np.float32), tgt.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hypotheses", "refit", "zero weights",
+                                  "two weights"])
+def test_kabsch_kernel_matches_plain(card, case):
+    """The batched Kabsch against ``se3.kabsch_quat`` on the card, pose
+    within 1e-5: RANSAC's 4096 unweighted 3-point hypotheses (one thread a
+    problem), the refit over 1500 weighted points (one CTA), all-zero
+    weights and fewer than 3 nonzero weights (the degenerate solves both
+    versions still make)."""
+    cuda.build_all()
+    rs = np.random.RandomState(11)
+    bs, n = (4096, 3) if case == "hypotheses" else (1, 1500)
+    src, tgt = _rigid_set(rs, bs, n, 0.005)
+    A, B = (torch.from_numpy(x).to(card) for x in (src, tgt))
+    w = None
+    if case != "hypotheses":
+        w = torch.from_numpy(rs.uniform(0.2, 1.0, (bs, n)).astype(np.float32))
+        w = w.to(card)
+        if case == "zero weights":
+            w.zero_()
+        elif case == "two weights":
+            w[:, 2:] = 0
+    before = cuda.launch_counts()["kabsch"]
+    got = pose_cuda.kabsch_cuda(A, B, w)
+    assert cuda.launch_counts()["kabsch"] == before + 1
+    want = se3.kabsch_quat(A, B, w)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got[:, 3], want[:, 3])
+
+
+def _irls_inputs(card, case):
+    """(pose, src, tgt, valid, th) of an IRLS call: 1500 correspondences,
+    300 of them outliers, 100 more invalid, from a pose half a degree and
+    5 mm off (every inlier well inside the threshold from the first round); "two valid" keeps 2 valid inliers, so every round keeps the pose,
+    "three valid" 3, the fewest that a round solves on."""
+    rs = np.random.RandomState(5)
+    src, tgt = (x[0] for x in _rigid_set(rs, 1, 1500, 0.003, outliers=300))
+    valid = np.ones(1500, bool)
+    valid[:100] = False
+    if case != "full":
+        valid[:] = False
+        valid[100:102 if case == "two valid" else 103] = True
+    c, s = np.cos(np.radians(0.5)), np.sin(np.radians(0.5))
+    tweak = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    est = np.linalg.lstsq(np.c_[src[100:1200], np.ones(1100)], tgt[100:1200],
+                          rcond=None)[0].T
+    pose = np.eye(4)
+    pose[:3, :3] = tweak @ est[:, :3]
+    pose[:3, 3] = est[:, 3] + 0.005
+    to = lambda x: torch.from_numpy(np.asarray(x)).to(card)
+    return (to(pose.astype(np.float32)), to(src), to(tgt), to(valid), 0.10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [10, 20])
+@pytest.mark.parametrize("case", ["full", "two valid", "three valid"])
+def test_irls_kernel_matches_plain(card, iters, case):
+    """Every IRLS round in one launch against the plain loop on the card:
+    pose within 1e-5 and the same inliers under it; with 2 valid inliers
+    every round keeps the starting pose, bit for bit."""
+    cuda.build_all()
+    pose, src, tgt, valid, th = _irls_inputs(card, case)
+    before = cuda.launch_counts()["irls"]
+    got = pose_cuda.irls_cuda(pose, src, tgt, valid, th, iters)
+    assert cuda.launch_counts()["irls"] == before + 1
+    want = pose_cuda.irls_plain(pose, src, tgt, valid, th, iters)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+    def inliers(T):
+        d = torch.linalg.norm(src @ T[:3, :3].T + T[:3, 3] - tgt, dim=-1)
+        return (d < th) & valid
+    assert torch.equal(inliers(got), inliers(want))
+    if case == "two valid":
+        assert torch.equal(got, pose)
+    else:
+        assert not torch.equal(got, pose)
+        assert int(inliers(got).sum()) == (1100 if case == "full" else 3)
+
+
+@pytest.mark.cuda
+def test_pose_wrappers_raise(card):
+    """A CUDA tensor the kernels do not take raises (no fallback): not
+    contiguous, on two devices, or asking for a gradient."""
+    A = torch.randn(4, 3, 3, device=card)
+    with pytest.raises(ValueError):
+        pose_cuda.kabsch_cuda(A.transpose(1, 2), A)
+    with pytest.raises(ValueError):
+        pose_cuda.kabsch_cuda(A, A.cpu())
+    with pytest.raises(RuntimeError):
+        pose_cuda.kabsch_cuda(A.requires_grad_(), A.detach())
+    pose, src, tgt, valid, th = _irls_inputs(card, "full")
+    with pytest.raises(ValueError):
+        pose_cuda.irls_cuda(pose.T, src, tgt, valid, th, 10)
+
+
+def _tail_front(card, K=400):
+    """A ``Front`` of K rigid correspondences with 80 outliers, every one a
+    mutual match and a vote inlier: all that ``pair_tail`` reads."""
+    src, tgt = (torch.from_numpy(x[0]).to(card) for x in
+                _rigid_set(np.random.RandomState(3), 1, K, 0.003, outliers=80))
+    every = torch.ones(K, dtype=torch.bool, device=card)
+    return registration.Front(ss_kpts=src, tt_kpts=tgt, mutual=every,
+                              vote_inliers=every, num_mutual=every.sum(),
+                              kpts=None, kpt_valid=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["3DMatch", "KITTI"])
+def test_tail_capture_launches_the_pose_kernels(card, preset):
+    """The boost tail captured in a CUDA graph: its capture counts 2 Kabsch
+    launches (the hypotheses, the refit) and 1 IRLS launch where the preset
+    refines the pose (KITTI: none), and its replay equals the eager tail bit
+    for bit and the plain tail's pose to 1e-5."""
+    cuda.build_all()
+    cfg = threedmatch_cfg() if preset == "3DMatch" else kitti_cfg()
+    front = _tail_front(card)
+    H = 4 * cfg.match.hypotheses
+    gen = torch.Generator(card).manual_seed(0)
+    u = torch.rand((H, 3, front.ss_kpts.shape[0]), generator=gen, device=card)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-7, 1 - 1e-7)))
+    iters = 2 * cfg.static.refine_iters
+    with torch.no_grad(), registration.full_fp32():
+        want = registration.pair_tail(cfg, front, gumbel, iters)
+        with sites.plain_versions():
+            plain = registration.pair_tail(cfg, front, gumbel, iters)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = registration.pair_tail(cfg, front, gumbel, iters)
+        rose = {k: v for k, v in cuda.launch_counts().items() if v}
+        assert rose == ({"kabsch": 2, "irls": 1} if cfg.test.pose_refine
+                        else {"kabsch": 2})
+        graph.replay()
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got[1], plain[1])
+    torch.testing.assert_close(got[0], plain[0], rtol=0, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_test_entry_point_on_card(card, tmp_path):
     """``python -m buffer_tpu_torch.scripts.test`` on the card (the default
@@ -508,9 +668,10 @@ def test_test_entry_point_on_card(card, tmp_path):
     assert out["pairs"] == 2 and 0.0 <= out["registration_recall"] <= 1.0
     launches = {k: v for k, v in cuda.launch_counts().items() if v}
     # the tiny plan's pair_unroll = 3: one group of the 2 pairs and the
-    # second again (padding, its result discarded), 3 pairs' launches
+    # second again (padding, its result discarded), 3 pairs' launches, each
+    # tail 2 Kabsch solves and the IRLS rounds
     assert launches == {"nearest": 6, "fps": 3, "ball_sample": 3,
-                        "spt_pooled": 3}
+                        "spt_pooled": 3, "kabsch": 6, "irls": 3}
     _, traj = metrics.read_trajectory(str(tmp_path / "log" / scene / "est.log"))
     assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()
 
@@ -658,7 +819,8 @@ def test_program_equals_register_pair(card, plan, th):
     same inputs and draws, with every pair on the base tail
     (``low_match_th = 0``) or on the boost tail (above any mutual count);
     a result keeps its values through the calls after it; a replay's
-    launch counts are the eager pair's."""
+    launch counts are the eager pair's, and the first call's those and the
+    tail its warm-up runs besides (the budget the pair does not take)."""
     cuda.build_all()
     cfg, pairs = _program_pairs(plan, card)
     cfg = cfg.replace(static=dataclasses.replace(cfg.static, low_match_th=th))
@@ -669,12 +831,16 @@ def test_program_equals_register_pair(card, plan, th):
     want = [registration.register_pair(model, p, d) for p, d in zip(pairs, draws)]
     eager = cuda.launch_counts()
     fn = registration.make_register_fn(model)
+    untaken = {"kabsch": 2, "irls": int(cfg.test.pose_refine)}
     got = []
     for _ in range(2):
         for p, d, w in zip(pairs, draws, want):
             cuda.reset_launches()
+            built = len(fn.programs)
             got.append((fn(p, d), w))
-            assert cuda.launch_counts() == {k: v // 2 for k, v in eager.items()}
+            warm = len(fn.programs) - built
+            assert cuda.launch_counts() == {
+                k: v // 2 + warm * untaken.get(k, 0) for k, v in eager.items()}
             assert all(torch.equal(a, b) for a, b in zip(*got[-1]))
             assert registration.boost_taken(cfg, got[-1][0].num_mutual) == (th > 0)
     for res, w in got:
@@ -705,9 +871,10 @@ def test_unrolled_program_equals_register_fn(card, plan):
     with ``low_match_th`` between two pairs' mutual counts: the first call
     (warm-up, capture) and two replays return, pair by pair, what
     ``make_register_fn`` returns on the same inputs and draws, bit for bit;
-    the group takes both tails; a call launches three pairs' kernels and
-    makes one host read; every chain has its own stream and memory pool;
-    a result keeps its values through the calls after it."""
+    the group takes both tails; a call launches three pairs' kernels (the
+    first also each chain's warm-up of the tail its pair does not take)
+    and makes one host read; every chain has its own stream and memory
+    pool; a result keeps its values through the calls after it."""
     cuda.build_all()
     cfg, pairs = _program_pairs(plan, card)
     if plan == "tiny":
@@ -724,17 +891,21 @@ def test_unrolled_program_equals_register_fn(card, plan):
                                                  low_match_th=max(counts)))
     model = BufferModel(cfg, seed=0).to(card)
     single = registration.make_register_fn(model)
-    cuda.reset_launches()
     want = [single(p, d) for p, d in zip(pairs, draws)]
+    cuda.reset_launches()
     want = [single(p, d) for p, d in zip(pairs, draws)]    # replays
-    per_pair = {k: v // 6 for k, v in cuda.launch_counts().items()}
+    per_pair = {k: v // 3 for k, v in cuda.launch_counts().items()}
+    untaken = {"kabsch": 2, "irls": int(cfg.test.pose_refine)}
     fn = registration.make_unrolled_register_fn(model, 3)
     got = []
     for n_call in range(3):
         cuda.reset_launches()
+        built = len(fn.programs)
         res, syncs = _sync_count(lambda: fn(pairs, draws))
         got.append(res)
-        assert cuda.launch_counts() == {k: 3 * v for k, v in per_pair.items()}
+        chains = 3 * (len(fn.programs) - built)     # built in this call
+        assert cuda.launch_counts() == {
+            k: 3 * v + chains * untaken.get(k, 0) for k, v in per_pair.items()}
         if n_call:
             assert syncs == 1
         for u, w in enumerate(want):
@@ -753,18 +924,38 @@ def test_unrolled_program_equals_register_fn(card, plan):
 
 class _TimedGraph:
     """A captured graph whose replays are bracketed by plain timing events
-    on the replaying stream."""
+    on the replaying stream, after a spin of ``lead`` clock cycles queued
+    ahead of the first event."""
 
-    def __init__(self, graph):
-        self.graph, self.spans = graph, []
+    def __init__(self, graph, lead: int):
+        self.graph, self.lead, self.spans = graph, lead, []
 
     def replay(self):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(self.lead)
         a.record()
         self.graph.replay()
         b.record()
         self.spans.append((a, b))
+
+
+def _one_node_graph_ms(stream, lead: int, reps: int = 10) -> float:
+    """Median span of a captured graph of one small kernel replayed on
+    ``stream`` as :class:`_TimedGraph` times a replay: a graph launch and
+    one small node."""
+    x = torch.zeros(1, device=stream.device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        x.add_(1)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            x.add_(1)
+        timed = _TimedGraph(graph, lead)
+        for _ in range(reps):
+            timed.replay()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in timed.spans)
 
 
 def _three_pairs(card, plan="tiny"):
@@ -783,23 +974,33 @@ def test_unrolled_program_stage_spans(card):
     IRLS on): every call leaves a record, every stage span of every chain
     is positive, and a chain's front and tail stages add up, within 2%, to
     the spans of the same replays of its front and tail graphs timed by
-    plain events around them.  (The outer span also holds the graph's
-    launch latency, ~0.15 ms on the card: 2% of the tiny plan's front.)"""
+    plain events around them (:class:`_TimedGraph`), less the span of a
+    graph of one small node timed the same way: a graph's launch, and a
+    node like the one after a tail's last mark (the RANSAC inlier count),
+    which together are ~2% of a ~0.65 ms tail.  Each replay waits behind a
+    spin of ~1 ms (2e6 cycles at 1980 MHz), so the card records the first
+    outer event only once the host has submitted the whole graph (else the
+    span holds the host's launch time, up to 0.05 ms); the tails' spins
+    grow by ~2 ms a chain, so each tail runs alone and no other chain's
+    kernels hold back its last node (which otherwise waited up to
+    0.08 ms)."""
     cuda.build_all()
     cfg, pairs, draws = _three_pairs(card, "3DMatch")
     model = BufferModel(cfg, seed=0).to(card)
     fn = registration.make_unrolled_register_fn(model, 3)
     fn(pairs, draws)
     (program,) = fn.programs.values()
-    for c in program.chains:
-        c.front_graph = _TimedGraph(c.front_graph)
-        c.tails = {b: (_TimedGraph(g), out, n)
+    lead = 2_000_000
+    for j, c in enumerate(program.chains):
+        c.front_graph = _TimedGraph(c.front_graph, lead)
+        c.tails = {b: (_TimedGraph(g, (1 + 2 * j) * lead), out, n)
                    for b, (g, out, n) in c.tails.items()}
     t0 = time.perf_counter()
     for _ in range(3):
         fn(pairs, draws).pose.cpu()
     recs = profiling.call_records(t0, time.perf_counter())
     assert profiling.unread_calls(t0, time.perf_counter()) == 0
+    launch = _one_node_graph_ms(program.chains[0].stream, lead)
     assert [r["unroll"] for r in recs] == [3, 3, 3]
     assert recs[0]["call_gap_ms"] is None          # first after the capture
     FRONT, TAIL = registration.StageTimer.FRONT, registration.StageTimer.TAIL
@@ -811,11 +1012,11 @@ def test_unrolled_program_stage_spans(card):
             assert all(v > 0 for v in st.values()), st
             a, b = c.front_graph.spans[k]
             assert sum(st[s] for s in FRONT) == pytest.approx(
-                a.elapsed_time(b), rel=0.02)
+                a.elapsed_time(b) - launch, rel=0.02)
             (tail,) = [g for g, _, _ in c.tails.values() if g.spans]
             a, b = tail.spans[k]
             assert sum(st[s] for s in TAIL) == pytest.approx(
-                a.elapsed_time(b), rel=0.02)
+                a.elapsed_time(b) - launch, rel=0.02)
 
 
 @pytest.mark.cuda

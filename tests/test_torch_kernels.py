@@ -21,8 +21,10 @@ import buffer_tpu.kernels.geom_pallas as gp
 from buffer_tpu.core import gridmath as jgridmath
 
 from buffer_tpu_torch.config import threedmatch_cfg, tiny_cfg
+from buffer_tpu_torch.core import se3
 from buffer_tpu_torch.kernels import cuda
-from buffer_tpu_torch.kernels import geom_cuda, fps_cuda
+from buffer_tpu_torch.kernels import geom_cuda, fps_cuda, pose_cuda, sites
+from buffer_tpu_torch.pipeline import ransac, refine
 
 torch.set_num_threads(1)
 
@@ -284,3 +286,64 @@ def test_wrappers_take_plain_versions_on_cpu():
     counts = cuda.launch_counts()
     assert {"nearest", "ball_sample", "spt_pooled", "fps"} <= set(counts)
     assert set(counts.values()) == {0}
+
+
+def test_pose_sites_switch_to_plain_versions():
+    """RANSAC's solves and the IRLS loop are kernel call sites:
+    ``plain_versions()`` puts the plain versions there and keys the
+    compiled programs (``plain_active``), and restores the wrappers."""
+    assert (ransac, "kabsch_cuda", se3.kabsch_quat) in sites.call_sites()
+    assert (refine, "irls_cuda", pose_cuda.irls_plain) in sites.call_sites()
+    assert ransac.kabsch_cuda is pose_cuda.kabsch_cuda
+    assert refine.irls_cuda is pose_cuda.irls_cuda
+    assert not sites.plain_active()
+    with sites.plain_versions():
+        assert ransac.kabsch_cuda is se3.kabsch_quat
+        assert refine.irls_cuda is pose_cuda.irls_plain
+        assert sites.plain_active()
+    assert ransac.kabsch_cuda is pose_cuda.kabsch_cuda
+    assert refine.irls_cuda is pose_cuda.irls_cuda
+    assert {"kabsch", "irls"} <= set(cuda.KERNELS)
+
+
+def _pose_args(**bad):
+    """Arguments of ``irls_cuda`` on CPU tensors, with fields replaced."""
+    rs = np.random.RandomState(0)
+    args = {"pose": torch.eye(4), "src": _t(rs.randn(50, 3).astype(np.float32)),
+            "tgt": _t(rs.randn(50, 3).astype(np.float32)),
+            "valid": torch.ones(50, dtype=torch.bool), "inlier_threshold": 0.1,
+            "iters": 10}
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("case", [
+    "kabsch float64", "kabsch weights float64", "kabsch [N, 3]",
+    "kabsch B shape", "kabsch weights shape", "kabsch 2 coordinates",
+    "irls float64", "irls valid float", "irls pose [3, 4]", "irls tgt shape",
+    "irls valid shape", "irls rounds"])
+def test_pose_wrappers_raise_on_bad_inputs(case):
+    """The pose solver's wrappers check dtypes and shapes before choosing
+    the plain version or the kernel, so a CPU tensor the kernel would not
+    take raises too."""
+    A = torch.randn(4, 5, 3)
+    if case.startswith("kabsch"):
+        args = {"kabsch float64": (A.double(), A.double()),
+                "kabsch weights float64": (A, A, torch.ones(4, 5,
+                                                            dtype=torch.float64)),
+                "kabsch [N, 3]": (A[0], A[0]),
+                "kabsch B shape": (A, A[:, :4]),
+                "kabsch weights shape": (A, A, torch.ones(4, 4)),
+                "kabsch 2 coordinates": (A[..., :2], A[..., :2])}[case]
+        with pytest.raises(ValueError):
+            pose_cuda.kabsch_cuda(*args)
+        return
+    a = _pose_args()
+    bad = {"irls float64": {"src": a["src"].double(), "tgt": a["tgt"].double()},
+           "irls valid float": {"valid": a["valid"].float()},
+           "irls pose [3, 4]": {"pose": a["pose"][:3]},
+           "irls tgt shape": {"tgt": a["tgt"][:40]},
+           "irls valid shape": {"valid": a["valid"][:40]},
+           "irls rounds": {"iters": -1}}[case]
+    with pytest.raises(ValueError):
+        pose_cuda.irls_cuda(**_pose_args(**bad))

@@ -21,6 +21,7 @@ from buffer_tpu.pipeline.pyramid import build_pyramid_and_normals as j_pyramid
 
 import buffer_tpu_torch.config as tconfig
 from buffer_tpu_torch.compat.from_jax import variables_to_state_dict
+from buffer_tpu_torch.kernels import pose_cuda, sites
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.models.patch_embedder import fold_point_mlp
 from buffer_tpu_torch.models.point_learner import Pyramid
@@ -168,9 +169,13 @@ def test_cost_volume_matches(weights):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
-def test_matching_ransac_irls_match():
+@pytest.mark.parametrize("iters", [10, 20])
+def test_matching_ransac_irls_match(iters):
     """Mutual matching, hypotheses and voting, RANSAC with JAX's own Gumbel
-    draws, and IRLS on a noisy rigid correspondence set."""
+    draws, and IRLS on a noisy rigid correspondence set at the base and the
+    low-match budget's rounds (10, 20); on CPU tensors the pose solver's
+    wrappers are their plain versions, so RANSAC's and IRLS's results are
+    also the plain versions' bit for bit."""
     rs = np.random.RandomState(4)
     K, H = 64, 128
     des = rs.randn(2, K, 32).astype(np.float32)
@@ -215,8 +220,14 @@ def test_matching_ransac_irls_match():
     pose, rinl = ransac.ransac_pose(_t(gumbel), _t(src), _t(tgt), _t(corr), 0.1, 0.8)
     np.testing.assert_array_equal(rinl.numpy(), np.asarray(rinl_j))
     np.testing.assert_allclose(pose.numpy(), np.asarray(pose_j), rtol=1e-4, atol=1e-4)
+    with sites.plain_versions():
+        pose_p, rinl_p = ransac.ransac_pose(_t(gumbel), _t(src), _t(tgt), _t(corr),
+                                            0.1, 0.8)
+    assert torch.equal(pose, pose_p) and torch.equal(rinl, rinl_p)
     ref_j = jrefine.post_refinement(pose_j, jnp.asarray(src), jnp.asarray(tgt),
-                                    jnp.asarray(corr), 0.1, iters=10)
-    ref = refine.post_refinement(pose, _t(src), _t(tgt), _t(corr), 0.1, iters=10)
+                                    jnp.asarray(corr), 0.1, iters=iters)
+    ref = refine.post_refinement(pose, _t(src), _t(tgt), _t(corr), 0.1, iters=iters)
     np.testing.assert_allclose(ref.numpy(), np.asarray(ref_j), rtol=1e-4, atol=1e-4)
+    plain = pose_cuda.irls_plain(pose, _t(src), _t(tgt), _t(corr), 0.1, iters)
+    assert torch.equal(ref, plain)
     np.testing.assert_allclose(ref.numpy()[:3, :3], Rg, atol=1e-2)

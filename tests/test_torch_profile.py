@@ -123,15 +123,18 @@ def test_stage_rows_chain_to_register_pair(case):
             w_pose, w_inl = reg.pair_tail(cfg, front, *reg.tail_budget(cfg, draws, b))
             assert torch.equal(tails[b][0], w_pose) and torch.equal(tails[b][1], w_inl)
     assert profile_stages.chain_mismatches(model, inputs, draws, chained, "cpu") == []
-    # the taken tail's Kabsch calls: the hypotheses, the refit, one an IRLS
-    # round (KITTI does not refine)
+    # the taken tail's pose-solver calls: the hypotheses and the refit, and
+    # one call for every IRLS round (KITTI does not refine)
     H = draws.ransac_gumbel_boost.shape[0] if taken else cfg.match.hypotheses
     K = cfg.point.num_keypts
-    calls = profile_stages.kabsch_calls(rows, profile_stages.budget_name(taken))
-    want = [("RANSAC", [H, 3, 3], False, 1), ("RANSAC", [1, K, 3], True, 1)]
+    calls = profile_stages.pose_calls(rows, profile_stages.budget_name(taken))
+    want = [("RANSAC", "kabsch_cuda", [H, 3, 3], False, 1),
+            ("RANSAC", "kabsch_cuda", [1, K, 3], True, 1)]
     if cfg.test.pose_refine:
-        want.append(("IRLS", [1, K, 3], True, reg.tail_budget(cfg, draws, taken)[1]))
-    assert [(c["row"].split()[0], c["points"], c["weighted"], c["calls"])
+        want.append(("IRLS", "irls_cuda", [K, 3],
+                     reg.tail_budget(cfg, draws, taken)[1], 1))
+    assert [(c["row"].split()[0], c["wrapper"], c["points"],
+             c.get("weighted", c.get("rounds")), c["calls"])
             for c in calls] == want
 
 
