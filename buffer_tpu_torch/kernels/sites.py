@@ -10,8 +10,10 @@ import contextlib
 def call_sites():
     """(module, attribute, plain version) of every kernel call site."""
     from buffer_tpu_torch.core import se3
-    from buffer_tpu_torch.kernels import fps_cuda, geom_cuda, knn_cuda, pose_cuda
-    from buffer_tpu_torch.models import patch_embedder
+    from buffer_tpu_torch.kernels import (cyl_cuda, fps_cuda, geom_cuda,
+                                          knn_cuda, pose_cuda)
+    from buffer_tpu_torch.models import heads, patch_embedder
+    from buffer_tpu_torch.nn import cylindrical
     from buffer_tpu_torch.ops import neighbors, sampling
     from buffer_tpu_torch.pipeline import ransac, refine
     return [(neighbors, "nearest_cuda", geom_cuda.nearest_plain),
@@ -25,7 +27,11 @@ def call_sites():
             (sampling, "fps_cuda_single", fps_cuda.fps_single_plain),
             (patch_embedder, "spt_pooled_cuda", geom_cuda.spt_pooled_plain),
             (ransac, "kabsch_cuda", se3.kabsch_quat),
-            (refine, "irls_cuda", pose_cuda.irls_plain)]
+            (refine, "irls_cuda", pose_cuda.irls_plain),
+            (cylindrical, "cyl_pad_cuda", cyl_cuda.cyl_pad_plain),
+            (cylindrical, "conv_pad_cuda", cyl_cuda.conv_pad_plain),
+            (cylindrical, "conv_bn_relu_cuda", cyl_cuda.conv_bn_relu_plain),
+            (heads, "cost_volume_cuda", heads.cost_volume)]
 
 
 @contextlib.contextmanager

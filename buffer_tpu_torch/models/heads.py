@@ -7,7 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from buffer_tpu_torch.nn.cylindrical import CostNet
+from buffer_tpu_torch.kernels.cyl_cuda import cost_volume_cuda
+from buffer_tpu_torch.nn.cylindrical import CostNet, inference
 
 
 def _azimuth_rolls(des: torch.Tensor, azi_n: int) -> torch.Tensor:
@@ -22,6 +23,14 @@ def equi_match(des1: torch.Tensor, des2: torch.Tensor, azi_n: int) -> torch.Tens
     return torch.einsum("mnkac,mkac->mn", _azimuth_rolls(des1, azi_n), des2)
 
 
+def cost_volume(des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
+    """The volume CostNet reads (models/BUFFER.py:37-66): des1, des2 [M,
+    ele, azi, C] -> [M, C, shift, ele, azi], des1 rolled by every azimuth
+    shift less des2, stored channels last."""
+    rolls = _azimuth_rolls(des1, des1.shape[2])
+    return (rolls - des2[:, None]).permute(0, 4, 1, 2, 3)
+
+
 class CostVolume(nn.Module):
     """Roll des1 over every azimuth shift, subtract des2, aggregate with the
     3-D CostNet and return the soft-argmax azimuth bin [M]."""
@@ -33,11 +42,14 @@ class CostVolume(nn.Module):
 
     def cost(self, des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
         """The volume CostNet reads: [M, C, shift, ele, azi]."""
-        rolls = _azimuth_rolls(des1, self.azi_n)
-        return (rolls - des2[:, None]).permute(0, 4, 1, 2, 3)
+        return cost_volume(des1, des2)
 
     def forward(self, des1: torch.Tensor, des2: torch.Tensor) -> torch.Tensor:
-        """des1, des2 [M, ele_band, azi, C] (the reduced elevation band)."""
-        prob = torch.softmax(self.conv(self.cost(des1, des2)), dim=-1)
+        """des1, des2 [M, ele_band, azi, C] (the reduced elevation band).
+        In inference the volume is one pass (``kernels/cyl_cuda.py``), the
+        values and layout of :func:`cost_volume`."""
+        vol = (cost_volume_cuda(des1, des2) if inference(self)
+               else self.cost(des1, des2))
+        prob = torch.softmax(self.conv(vol), dim=-1)
         bins = torch.arange(self.azi_n, dtype=prob.dtype, device=prob.device)
         return torch.sum(prob * bins, dim=-1)

@@ -4,12 +4,22 @@ models/patchnet.py).  Channels-first (NCHW / NCDHW) as in the reference,
 with its ``ops.N`` parameter numbering; all batch norms are affine-free
 and unmasked: PyTorch's own batch norm, running statistics in eval mode and
 batch statistics in train mode, the semantics of the JAX package's
-``MaskedBatchNorm`` without a mask."""
+``MaskedBatchNorm`` without a mask.
+
+In inference (eval mode, no autograd) each convolution's epilogue is one
+pass (``kernels/cyl_cuda.py``): its bias, batch norm and ReLU and the next
+convolution's cylindrical padding one write of the padded map, CostNet's
+bias, batch norm and ReLU one pass in place.  The convolutions read the
+same tensors as through :meth:`CylindricalNet.layer` and
+:meth:`CostNet.layer`, which train mode runs."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+
+from buffer_tpu_torch.kernels.cyl_cuda import (conv_bn_relu_cuda, conv_pad_cuda,
+                                               cyl_pad_cuda)
 
 
 def pad_cyl_2d(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -31,6 +41,12 @@ def conv_layers(ops) -> tuple:
             groups.append([])
         groups[-1].append(op)
     return tuple(tuple(g) for g in groups)
+
+
+def inference(module: nn.Module) -> bool:
+    """Whether ``module`` runs as inference: eval mode (running statistics)
+    and no autograd, which the fused passes do not carry."""
+    return not (module.training or torch.is_grad_enabled())
 
 
 class CylindricalNet(nn.Module):
@@ -63,9 +79,17 @@ class CylindricalNet(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(len(self.layers)):
-            x = self.layer(i, x)
-        return x
+        if not inference(self):
+            for i in range(len(self.layers)):
+                x = self.layer(i, x)
+            return x
+        *inner, (last,) = self.layers        # conv, batch norm, ReLU; conv
+        x = cyl_pad_cuda(x)
+        for conv, bn, _ in inner:
+            x = conv_pad_cuda(conv, bn, x)
+            if x.dim() == 5:
+                x = x[:, :, 0]                        # radial dim collapsed to 1
+        return last(x)
 
 
 class CostNet(nn.Module):
@@ -94,6 +118,12 @@ class CostNet(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(len(self.layers)):
-            x = self.layer(i, x)
+        if inference(self):
+            *inner, (last,) = self.layers    # conv, batch norm, ReLU; conv
+            for conv, bn, _ in inner:
+                x = conv_bn_relu_cuda(conv, bn, x)
+            x = last(x)
+        else:
+            for i in range(len(self.layers)):
+                x = self.layer(i, x)
         return x.reshape(x.shape[0], self.out_dim)

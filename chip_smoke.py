@@ -79,7 +79,8 @@
      their ground-truth poses: one ``Trainer`` per stage, Ref -> Desc ->
      Keypt -> Inlier, the others frozen, 3 train steps (the first a
      warm-up) and 1 eval step each, through the compiled steps.  Every
-     step's launches must equal ``TRAIN_STEP``; losses finite; only the
+     step's launches must equal ``TRAIN_STEP`` (``EVAL_STEP`` the eval
+     step's); losses finite; only the
      active stage's parameters move, the frozen stages' running statistics
      stay; the best and epoch checkpoints reload equal.
    * "3DMatch train program" and "KITTI train program": the compiled
@@ -131,7 +132,8 @@
      ``buffer_tpu_torch.scripts.train.main`` at the presets' full width over
      training trees written into ``build/train_entry/`` (KITTI's ICP cached
      first), every stage 1 epoch of 3 steps and its val split: every step's
-     launches as ``STEP_LAUNCHES``, losses finite, no step skipped, only the
+     launches as ``STEP_LAUNCHES`` (``EVAL_STEP`` a val step's), losses
+     finite, no step skipped, only the
      active stage moves, ``best.pth`` and a val line for every stage; ms/step
      and peak memory a stage; one KITTI Ref step against its plain twin;
    * "presets": the test entry point at full width, one pair each, with a
@@ -226,7 +228,12 @@
    tail and of the KITTI pair's base tail, each held with its plain
    version to the plain version in float64 (the kernel sums in another
    order, so the gate is its largest gap there: at most 4 times the plain
-   version's, plus 1e-5), both timed.
+   version's, plus 1e-5), both timed.  The passes around the descriptor
+   and cost-volume convolutions (``cyl_pad_cuda``, ``conv_pad_cuda``,
+   ``conv_bn_relu_cuda``, ``cost_volume_cuda``) on every call of the first
+   pair (their count held to ``CONV``), bit for bit and stride for stride
+   their plain versions, timed beside them; the plain versions are the
+   library passes they replace (the convolutions' own time taken away).
 
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds every kernel's
@@ -280,15 +287,23 @@ POSE_FACTOR, POSE_FLOOR = 4.0, 1e-5
 # preset refines the pose (test.pose_refine), one IRLS launch
 TAIL = {"kabsch": 2}
 REFINED_TAIL = {"kabsch": 2, "irls": 1}
+# in inference a MiniSpinNet forward writes CylindricalNet's 8 padded
+# inputs (conv 0's and 7 epilogues), and CostVolume its volume and
+# CostNet's 9 batch norms in place; a pair describes both clouds in one
+# batch
+DESCRIBE = {"cyl_pad": 8}
+COST_VOLUME = {"cost_volume": 1, "bn_relu": 9}
+CONV = {**DESCRIBE, **COST_VOLUME}
 PER_PAIR = {
     "3DMatch": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
-                "ball_sample": 1, "spt_pooled": 1, **REFINED_TAIL},
+                "ball_sample": 1, "spt_pooled": 1, **CONV, **REFINED_TAIL},
     "KITTI": {"bknn": 5, "bnn1": 1, "nearest": 1, "fps": 1, "ball_sample": 1,
-              "spt_pooled": 1, **TAIL},
+              "spt_pooled": 1, **CONV, **TAIL},
     "3DMatch knn_band=0": {"nearest": 2, "fps": 1, "ball_sample": 1,
-                           "spt_pooled": 1, **REFINED_TAIL},
+                           "spt_pooled": 1, **CONV, **REFINED_TAIL},
     "3DMatch fused_desc=False": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
-                                 "ball_sample_points": 1, **REFINED_TAIL},
+                                 "ball_sample_points": 1, **CONV,
+                                 **REFINED_TAIL},
     "farthest_point_sample": {"fps_single": 1},
 }
 # the eval path: pairs of each tree, the 3DMatch fragments' x slabs of the
@@ -304,16 +319,27 @@ EVAL_SNAPSHOT_SEED = 3
 TRAIN_PAIRS = 2
 TRAIN_STEPS = 3
 STAGES = ("Ref", "Desc", "Keypt", "Inlier")
-# launches per training (and eval) step on the 3DMatch preset: the pyramid
-# as above plus the banded 1-NN of the positive-pair sampler (30720 target
-# points > 2 * 4096), and both clouds' patches in one launch past Ref
-TRAIN_STEP = {"Ref": {"bknn": 4, "bnn1": 2, "nearest": 1}}
-TRAIN_STEP.update({s: dict(TRAIN_STEP["Ref"], ball_sample_points=1)
-                   for s in STAGES[1:]})
-# the same on the KITTI preset: its pyramid bands level 2 too
-KITTI_TRAIN_STEP = {"Ref": {"bknn": 5, "bnn1": 2, "nearest": 1}}
-KITTI_TRAIN_STEP.update({s: dict(KITTI_TRAIN_STEP["Ref"], ball_sample_points=1)
-                         for s in STAGES[1:]})
+
+
+def step_launches(ref: dict) -> tuple:
+    """(train, eval) launches a step of each stage from Ref's: both clouds'
+    patches in one launch past Ref; each cloud's descriptors apart, through
+    the fused passes wherever MiniSpinNet runs in eval mode (frozen past
+    Desc, and in every eval step); Inlier's cost volume in its eval step
+    (train mode runs the layers)."""
+    train = {"Ref": ref, "Desc": dict(ref, ball_sample_points=1)}
+    frozen = dict(train["Desc"], cyl_pad=2 * DESCRIBE["cyl_pad"])
+    train.update(Keypt=frozen, Inlier=frozen)
+    return train, dict(train, Desc=frozen, Inlier=dict(frozen, **COST_VOLUME))
+
+
+# launches per training step on the 3DMatch preset: the pyramid as above
+# plus the banded 1-NN of the positive-pair sampler (30720 target points >
+# 2 * 4096); on the KITTI preset its pyramid bands level 2 too
+TRAIN_STEP, EVAL_3DMATCH = step_launches({"bknn": 4, "bnn1": 2, "nearest": 1})
+KITTI_TRAIN_STEP, EVAL_KITTI = step_launches({"bknn": 5, "bnn1": 2,
+                                              "nearest": 1})
+EVAL_STEP = {"3DMatch": EVAL_3DMATCH, "KITTI": EVAL_KITTI}
 STEP_LAUNCHES = {"3DMatch": TRAIN_STEP, "KITTI": KITTI_TRAIN_STEP}
 # the pyramid of device-built levels launches what the host-built one does
 PER_PAIR["3DMatch device levels"] = PER_PAIR["3DMatch"]
@@ -332,7 +358,7 @@ EVAL_PAIRS.update({"ThreeD2ETH": 1, "KITTI2ThreeD": 1, "ThreeD2KITTI": 1})
 # under twice the band, so both upsamples take the exact 1-NN
 PER_PAIR["train_then_register"] = {"bknn": 4, "nearest": 2, "fps": 1,
                                    "ball_sample": 1, "spt_pooled": 1,
-                                   **REFINED_TAIL}
+                                   **CONV, **REFINED_TAIL}
 # the train entry's trees: 3DMatch fragments (x slabs of one wavy surface
 # a scene) paired consecutively in the overlap file; a KITTI sequence a
 # split of scans EVAL_SCAN_GAP apart, which pair mining turns into pairs
@@ -359,7 +385,7 @@ DP_TIMEOUT = 300.0
 # the synthetic evaluation's exact stack: unbanded search (the exact 1-NN
 # for both upsamples) and the sampled descriptor front
 SYNTH_EXACT_PAIR = {"nearest": 2, "fps": 1, "ball_sample_points": 1,
-                    **REFINED_TAIL}
+                    **CONV, **REFINED_TAIL}
 # the compiled program (make_register_fn): the kernels each launch counter
 # stands for, by their __global__ names in csrc/ (a profile of a replay
 # must show each as often as its counter rose), the replays timed a
@@ -371,7 +397,9 @@ GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "ball_sample": ("ball_pack_kernel", "ball_kernel"),
            "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
            "spt_pooled": ("spt_kernel",), "kabsch": ("kabsch_kernel",),
-           "irls": ("irls_kernel",)}
+           "irls": ("irls_kernel",), "cyl_pad": ("cyl_pad_kernel",),
+           "bn_relu": ("bn_relu_kernel",),
+           "cost_volume": ("cost_volume_kernel",)}
 PROGRAM_TIMED = 6
 # the unrolled program (make_unrolled_register_fn): the pairs a call of
 # each preset's runs, U = 1 first (the others are read beside it)
@@ -393,7 +421,7 @@ PROFILE_ATTEMPTS = 3
 DENSE_POINTS = 81920
 PER_PAIR["KITTI dense"] = dict(PER_PAIR["KITTI"],
                                bknn=PER_PAIR["KITTI"]["bknn"] - 2)
-DESCRIBE_CLOUD = {"ball_sample_points": 1, "spt_pooled": 1}
+DESCRIBE_CLOUD = {"ball_sample_points": 1, "spt_pooled": 1, **DESCRIBE}
 NN_JITTER = 0.05
 DISPATCH_APIS = (r"(cudaLaunchKernel|cudaLaunchKernelExC|cuLaunchKernel|"
                  r"cuLaunchKernelEx|cudaGraphLaunch|cudaMemcpyAsync|"
@@ -611,6 +639,94 @@ def pose_entries(calls) -> dict:
             e["bytes"] += nbytes
             e["calls"].append(list(a[1].shape) + ([a[5]] if name == "irls" else []))
         out[name] = e
+    return out
+
+
+CONV_SITES = ("cyl_pad_cuda", "conv_pad_cuda", "conv_bn_relu_cuda",
+              "cost_volume_cuda")
+
+
+def conv_pass_calls(model, dev, inputs, draws) -> dict:
+    """``register_pair`` of one pair with the arguments of every call of
+    the passes around the descriptor and cost-volume convolutions recorded:
+    {wrapper: [args]}."""
+    from buffer_tpu_torch.models import heads
+    from buffer_tpu_torch.nn import cylindrical
+    from buffer_tpu_torch.pipeline import registration
+    calls = {name: [] for name in CONV_SITES}
+    with contextlib.ExitStack() as stack:
+        for name in CONV_SITES:
+            mod = heads if name == "cost_volume_cuda" else cylindrical
+            stack.enter_context(capture(mod, name, calls[name]))
+        registration.register_pair(model, inputs, draws, device=dev)
+    return calls
+
+
+def conv_pass_entries(calls) -> dict:
+    """Each kernel over ``calls`` (``conv_pass_calls``, which must hold
+    ``CONV``'s calls: 1 padded input and 7 epilogues, 9 of CostNet, 1
+    volume): every wrapper bit for bit and stride for stride its plain
+    version; the pass alone timed by CUDA events, sums over the calls, on
+    the convolution's output as cuDNN gives it (without the bias) where the
+    pass is a convolution's epilogue: the kernel, and its plain version,
+    which is the library passes it replaces (the bias's addition, the
+    batch norm and ReLU modules and ``pad_cyl_2d``'s concatenations;
+    ``heads.cost_volume``'s rolls, stack and subtraction); bytes (each
+    input byte read once, each output byte written once) and operations
+    (the bias's addition, the batch norm's subtraction and product and the
+    ReLU; the volume's subtraction)."""
+    import torch
+    from buffer_tpu_torch.kernels import cyl_cuda, sites
+    from buffer_tpu_torch.models.heads import cost_volume
+    from buffer_tpu_torch.nn.cylindrical import pad_cyl_2d
+    kernel_of = {"cyl_pad_cuda": "cyl_pad", "conv_pad_cuda": "cyl_pad",
+                 "conv_bn_relu_cuda": "bn_relu", "cost_volume_cuda": "cost_volume"}
+    recorded = {k: 0 for k in CONV}
+    for name in CONV_SITES:
+        recorded[kernel_of[name]] += len(calls[name])
+    if recorded != CONV or len(calls["cyl_pad_cuda"]) != 1:
+        raise RuntimeError(f"conv passes: recorded {recorded} calls "
+                           f"({len(calls['cyl_pad_cuda'])} padded inputs), "
+                           f"expected {CONV} (1)")
+    plain_of = {name: plain for _, name, plain in sites.call_sites()}
+    biased = lambda conv, y: y + conv.bias.view(1, -1, *[1] * (y.dim() - 2))
+    modules = lambda conv, bn, y: torch.relu(bn(biased(conv, y)))
+    # (kernel, plain) of each pass, on what the pass reads
+    passes = {
+        "cyl_pad_cuda": (cyl_cuda.cyl_pad_cuda, lambda x: pad_cyl_2d(x, 3)),
+        "conv_pad_cuda": (
+            lambda conv, bn, y: cyl_cuda._pad(y, conv, bn),
+            lambda conv, bn, y: pad_cyl_2d(modules(conv, bn, y), 3)),
+        "conv_bn_relu_cuda": (
+            lambda conv, bn, y: cyl_cuda._bn_relu(y, conv, bn), modules),
+        "cost_volume_cuda": (cyl_cuda.cost_volume_cuda, cost_volume)}
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
+               "calls": []} for k in ("cyl_pad", "bn_relu", "cost_volume")}
+    with torch.no_grad():
+        for name in CONV_SITES:
+            wrapper, plain = getattr(cyl_cuda, name), plain_of[name]
+            kern, plain_pass = passes[name]
+            e = out[kernel_of[name]]
+            for a in calls[name]:
+                got, want = wrapper(*a), plain(*a)
+                if not (torch.equal(got, want)
+                        and got.stride() == want.stride()):
+                    raise RuntimeError(f"{name}: kernel and plain differ at "
+                                       f"{tuple(a[-1].shape)}")
+                if len(a) == 3:         # a convolution's epilogue
+                    src = cyl_cuda._without_bias(a[0], a[2])
+                    b = (a[0], a[1], src)
+                    # the in-place pass runs on a copy of its own
+                    k = (a[0], a[1], src.clone(memory_format=torch.preserve_format))
+                else:
+                    src, b, k = a[0], a, a
+                e["ms"] += cuda_ms(lambda k=k: kern(*k), 20)
+                e["plain_ms"] += cuda_ms(lambda b=b: plain_pass(*b), 5)
+                e["bytes"] += 4 * (src.numel() + got.numel()) + (
+                    4 * a[1].numel() if name == "cost_volume_cuda" else 0)
+                e["flops"] += (got.numel() if name == "cost_volume_cuda"
+                               else 4 * src.numel() * (len(a) == 3))
+                e["calls"].append(list(src.shape))
     return out
 
 
@@ -846,7 +962,7 @@ def train_path(dev, cfg, batches, save_dir: str, gen) -> dict:
             ms.append(t)
             losses.append(float(loss))
         res, eval_ms, _ = counted(lambda: trainer.evaluate(batches[:1], gen),
-                                  f"eval {stage}", TRAIN_STEP[stage])
+                                  f"eval {stage}", EVAL_STEP["3DMatch"][stage])
         if not all(math.isfinite(v) for v in res.values()):
             raise RuntimeError(f"eval {stage}: non-finite stats {res}")
         trainer.end_epoch(0, res)
@@ -1097,7 +1213,8 @@ def train_program_path(path: str, dev, cfg, batches, gen, save_dir: str) -> dict
             ev = make_train_draws(cfg, gen, dev)
             for k in range(2):
                 got, _, _ = counted(lambda: trainer.eval_fn(batches[0], ev),
-                                    f"{path} {stage} eval", table[stage])
+                                    f"{path} {stage} eval",
+                                    EVAL_STEP[preset][stage])
                 want = tr.eval_step(model, stage, batches[0], ev, margin, dev)
                 if not all(tensors_equal(a, b) for a, b in
                            zip((got[0], *got[1].values()),
@@ -1733,7 +1850,8 @@ def train_entry_path(dev, preset: str, root: str, out: str) -> dict:
             after = cuda.launch_counts()
             check_launches(f"{name} {self.stage} val",
                            {k: after[k] - before[k] for k in after},
-                           {k: v * len(n) for k, v in table[self.stage].items()})
+                           {k: v * len(n) for k, v in
+                            EVAL_STEP[preset][self.stage].items()})
             self.rec["val_pairs"] = len(n)
             if not n or not all(math.isfinite(v) for v in res.values()):
                 raise RuntimeError(f"{name} {self.stage}: val {len(n)} pairs, "
@@ -3875,6 +3993,16 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
               ms_kitti=ke["ms"], plain_ms_kitti=ke["plain_ms"],
               calls_kitti=ke["calls"], err_f64_kitti=ke["err_f64"],
               plain_err_f64_kitti=ke["plain_err_f64"], ptxas=ptxas[kern.name])
+    # 11.-13. the passes around the descriptor and cost-volume
+    # convolutions: every call of the first pair
+    from buffer_tpu_torch.kernels import cyl_cuda
+    passes = conv_pass_entries(conv_pass_calls(model, dev, pairs[0], draws[0]))
+    for kern in (cyl_cuda.CYL_PAD, cyl_cuda.BN_RELU, cyl_cuda.COST_VOLUME):
+        e = passes[kern.name]
+        # the plain version is the library passes: one timing for both
+        entry(kern, counts[kern.name], 0.0, e["ms"], e["plain_ms"], e["flops"],
+              e["bytes"], e["plain_ms"], calls=e["calls"],
+              ptxas=ptxas[kern.name])
     derived = {"sm_clock_mhz": clock / 1e6, "sms": SMS, "fp32_lanes": LANES,
                "kernels": floors}
     print(json.dumps({"issue_floor": derived}))

@@ -19,8 +19,8 @@ from buffer_tpu_torch.config import kitti_cfg, threedmatch_cfg, tiny_cfg
 from buffer_tpu_torch.core import se3
 from buffer_tpu_torch.data.preprocess import morton_sort
 from buffer_tpu_torch.data.synthetic import surface_pair
-from buffer_tpu_torch.kernels import (cuda, fps_cuda, geom_cuda, knn_cuda,
-                                      pose_cuda, sites)
+from buffer_tpu_torch.kernels import (cuda, cyl_cuda, fps_cuda, geom_cuda,
+                                      knn_cuda, pose_cuda, sites)
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.pipeline import registration
 from buffer_tpu_torch.utils import profiling
@@ -216,8 +216,9 @@ def test_register_pair_shipped_preset_kernels_match_plain_path(card):
     cfg = threedmatch_cfg()
     counts = _kernel_vs_plain_path(cfg, surface_pair(cfg, 0, card)[0], card)
     assert counts["bknn"] == 4 and counts["bnn1"] == 1, counts
-    for name in ("nearest", "fps", "ball_sample", "spt_pooled"):
+    for name in ("nearest", "fps", "ball_sample", "spt_pooled", "cost_volume"):
         assert counts[name] == 1, counts
+    assert counts["cyl_pad"] == 8 and counts["bn_relu"] == 9, counts
 
 
 def _sorted_clouds(rs, B, n, n_valid, device):
@@ -584,6 +585,219 @@ def test_pose_wrappers_raise(card):
         pose_cuda.irls_cuda(pose.T, src, tgt, valid, th, 10)
 
 
+def _conv_layer(card, conv, g):
+    """``conv`` with drawn weights and bias on the card, and an eval-mode
+    affine-free batch norm with drawn running statistics after it."""
+    C = conv.out_channels
+    conv = conv.to(card)
+    with torch.no_grad():
+        conv.bias.copy_(torch.randn(C, device=card, generator=g))
+    bn = (torch.nn.BatchNorm2d if isinstance(conv, torch.nn.Conv2d)
+          else torch.nn.BatchNorm3d)(C, affine=False).to(card).eval()
+    bn.running_mean.copy_(torch.randn(C, device=card, generator=g))
+    bn.running_var.copy_(torch.rand(C, device=card, generator=g) * 3 + 0.05)
+    return conv, bn
+
+
+def _equi_pair(card, g, K=1500):
+    """des1 and des2 of K matches as the pipeline hands them to the cost
+    volume: a band of the permuted normalized map, and its rows gathered."""
+    equi = torch.nn.functional.normalize(
+        torch.randn(2 * K, 32, 7, 20, device=card, generator=g),
+        dim=1).permute(0, 2, 3, 1)
+    tgt = torch.randint(0, K, (K,), device=card, generator=g)
+    return equi[:K, 1:6], equi[K:, 1:6][tgt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "input spt", "input sampled", "epilogue 64", "epilogue 128 channels last",
+    "epilogue conv 0", "costnet channels last", "costnet channels first",
+    "cost volume"])
+def test_cyl_kernels_match_plain(card, case):
+    """The passes around the descriptor and cost-volume convolutions at the
+    main path's widths (3000 patches, 1500 matches) against their plain
+    versions on the card, bit for bit and stride for stride, one launch
+    each: conv 0's padded input in the SPT kernel's layout and the sampled
+    front's (channels last); a cylindrical convolution's bias, batch norm,
+    ReLU and padded write (after cuDNN without the bias, against the
+    modules); CostNet's first convolution's bias, batch norm and ReLU in
+    place; the cost volume."""
+    from buffer_tpu_torch.kernels.geom_cuda import _pooled_layout
+    from buffer_tpu_torch.models.heads import cost_volume
+    cuda.build_all()
+    g = torch.Generator(card).manual_seed(7)
+    if case.startswith("input"):
+        if case == "input spt":
+            x = _pooled_layout(torch.randn(3000, 16, 420, device=card,
+                                           generator=g), 3, 20, 7)
+        else:
+            x = torch.randn(3000, 3, 7, 20, 16, device=card, generator=g)
+        x = x.permute(0, 4, 1, 2, 3)
+        name, args = "cyl_pad", (x,)
+        kern, plain = cyl_cuda.cyl_pad_cuda, cyl_cuda.cyl_pad_plain
+    elif case.startswith("epilogue"):
+        if "conv 0" in case:
+            conv, bn = _conv_layer(card, torch.nn.Conv3d(16, 64, 3), g)
+            x = torch.randn(3000, 16, 3, 9, 22, device=card, generator=g)
+        else:
+            C = 128 if "128" in case else 64
+            conv, bn = _conv_layer(card, torch.nn.Conv2d(64, C, 3), g)
+            x = torch.randn(3000, 64, 9, 22, device=card, generator=g)
+        if "channels last" in case:
+            x = x.contiguous(memory_format=torch.channels_last)
+        name, args = "cyl_pad", (conv, bn, x)
+        kern, plain = cyl_cuda.conv_pad_cuda, cyl_cuda.conv_pad_plain
+    elif case.startswith("costnet"):
+        fmt = (torch.channels_last_3d if "last" in case
+               else torch.contiguous_format)
+        conv, bn = _conv_layer(card, torch.nn.Conv3d(32, 32, 3), g)
+        x = torch.randn(1500, 32, 20, 5, 20, device=card, generator=g
+                        ).contiguous(memory_format=fmt)
+        name, args = "bn_relu", (conv, bn, x)
+        kern, plain = cyl_cuda.conv_bn_relu_cuda, cyl_cuda.conv_bn_relu_plain
+    else:
+        name, args = "cost_volume", _equi_pair(card, g)
+        kern, plain = cyl_cuda.cost_volume_cuda, cost_volume
+    with torch.no_grad():
+        want = plain(*args)
+        before = cuda.launch_counts()[name]
+        got = kern(*args)
+    assert cuda.launch_counts()[name] == before + 1
+    assert torch.equal(got, want) and got.stride() == want.stride()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [0, 50])
+def test_cyl_kernels_split_the_batch(card, monkeypatch, batch):
+    """A map past a launch's elements is split along its batch, one launch
+    a part, and an empty batch launches nothing: every pass bit for bit
+    its plain version, and stride for stride where it holds elements (the
+    bound lowered to 30888 elements, so that 50 items take 3 to 5
+    parts)."""
+    from buffer_tpu_torch.models.heads import cost_volume
+    cuda.build_all()
+    g = torch.Generator(card).manual_seed(10)
+    conv, bn = _conv_layer(card, torch.nn.Conv2d(8, 12, 3), g)
+    x = torch.randn(batch, 8, 9, 22, device=card, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    vol = tuple(d[:batch] for d in _equi_pair(card, g, K=50))
+    limit = 13 * 12 * 9 * 22
+    monkeypatch.setattr(cyl_cuda, "LAUNCH_ELEMENTS", limit)
+
+    def parts(per):             # items of ``per`` elements a launch
+        return -(-batch // ((limit - 1) // per))
+    for name, kern, plain, args, launches in (
+            ("cyl_pad", cyl_cuda.cyl_pad_cuda, cyl_cuda.cyl_pad_plain,
+             (x,), parts(8 * 11 * 24)),
+            ("cyl_pad", cyl_cuda.conv_pad_cuda, cyl_cuda.conv_pad_plain,
+             (conv, bn, x), parts(12 * 9 * 22)),
+            ("bn_relu", cyl_cuda.conv_bn_relu_cuda,
+             cyl_cuda.conv_bn_relu_plain, (conv, bn, x), parts(12 * 7 * 20)),
+            ("cost_volume", cyl_cuda.cost_volume_cuda, cost_volume, vol,
+             int(batch > 0))):
+        with torch.no_grad():
+            want = plain(*args)
+            before = cuda.launch_counts()[name]
+            got = kern(*args)
+        assert cuda.launch_counts()[name] == before + launches, name
+        assert torch.equal(got, want), name
+        assert batch == 0 or got.stride() == want.stride(), name
+    assert batch == 0 or (parts(8 * 11 * 24), parts(12 * 9 * 22),
+                          parts(12 * 7 * 20)) == (4, 5, 3)
+
+
+@pytest.mark.cuda
+def test_descriptor_and_cost_volume_forward_kernels_match_plain(card):
+    """A MiniSpinNet forward over 3000 pooled maps and a CostVolume forward
+    over 1500 matches in inference, through the kernels and through the
+    plain versions (substituted at their call sites): descriptors,
+    equivariant maps and azimuths bit for bit; the kernels launch 8 padded
+    writes, 9 batch norms and 1 volume."""
+    from buffer_tpu_torch.kernels.geom_cuda import _pooled_layout
+    from buffer_tpu_torch.models.heads import CostVolume
+    from buffer_tpu_torch.models.patch_embedder import MiniSpinNet
+    cuda.build_all()
+    g = torch.Generator(card).manual_seed(8)
+    desc, cv = MiniSpinNet().to(card).eval(), CostVolume(20).to(card).eval()
+    for mod in (desc, cv):
+        for b in mod.modules():
+            if isinstance(b, torch.nn.modules.batchnorm._BatchNorm):
+                b.running_mean.copy_(0.1 * torch.randn(
+                    b.num_features, device=card, generator=g))
+                b.running_var.copy_(0.5 + torch.rand(
+                    b.num_features, device=card, generator=g))
+    pooled = _pooled_layout(torch.rand(3000, 16, 420, device=card, generator=g),
+                            3, 20, 7)
+    tgt = torch.randint(0, 1500, (1500,), device=card, generator=g)
+
+    def forward():
+        with torch.no_grad():
+            d, e = desc(pooled)
+            return d, e, cv(e[:1500, 1:6], e[1500:, 1:6][tgt])
+    cuda.reset_launches()
+    got = forward()
+    assert {k: v for k, v in cuda.launch_counts().items() if v} == {
+        "cyl_pad": 8, "bn_relu": 9, "cost_volume": 1}
+    with sites.plain_versions():
+        want = forward()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_program_plain_versions_match_kernel_path(card):
+    """One registration program at the 3DMatch plan through the kernels,
+    and one built under ``plain_versions()`` through the plain versions:
+    the same keypoints and mutual count, descriptors within 2e-5 (the SPT
+    front's gate), the pose within 1e-5; a replay of the first launches the
+    fused passes (8 padded writes, 9 batch norms, 1 volume), of the second
+    no kernel."""
+    cuda.build_all()
+    cfg = threedmatch_cfg()
+    model = BufferModel(cfg, seed=0).to(card)
+    pair = surface_pair(cfg, 0, card)[0]
+    draws = registration.make_draws(cfg, torch.Generator(card).manual_seed(0),
+                                    card)
+    fn = registration.make_register_fn(model, return_intermediates=True)
+    fn(pair, draws)
+    cuda.reset_launches()
+    res_k, int_k = fn(pair, draws)
+    rose = cuda.launch_counts()
+    assert {k: rose[k] for k in ("cyl_pad", "bn_relu", "cost_volume")} == {
+        "cyl_pad": 8, "bn_relu": 9, "cost_volume": 1}
+    with sites.plain_versions():
+        plain = registration.make_register_fn(model, return_intermediates=True)
+        plain(pair, draws)
+        cuda.reset_launches()
+        res_p, int_p = plain(pair, draws)
+        assert max(cuda.launch_counts().values()) == 0
+    assert torch.equal(int_k["kidx"], int_p["kidx"])
+    assert int(res_k.num_mutual) == int(res_p.num_mutual)
+    for name in ("s_des", "t_des", "s_equi", "t_equi"):
+        torch.testing.assert_close(int_k[name], int_p[name], rtol=0, atol=2e-5)
+    torch.testing.assert_close(res_k.pose, res_p.pose, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cyl_wrappers_raise(card):
+    """A CUDA tensor the fused passes do not take raises (no fallback): a
+    layer on another device, an input asking for a gradient, descriptors
+    on two devices."""
+    g = torch.Generator(card).manual_seed(9)
+    conv, bn = _conv_layer(card, torch.nn.Conv2d(8, 8, 3), g)
+    x = torch.randn(4, 8, 9, 22, device=card)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            cyl_cuda.conv_pad_cuda(conv.cpu(), bn, x)
+    with pytest.raises(RuntimeError):
+        cyl_cuda.conv_bn_relu_cuda(conv.to(card), bn, x)
+    with pytest.raises(RuntimeError):
+        cyl_cuda.cyl_pad_cuda(x.requires_grad_())
+    d = torch.randn(3, 5, 20, 32, device=card)
+    with pytest.raises(ValueError):
+        cyl_cuda.cost_volume_cuda(d, d.cpu())
+
+
 def _tail_front(card, K=400):
     """A ``Front`` of K rigid correspondences with 80 outliers, every one a
     mutual match and a vote inlier: all that ``pair_tail`` reads."""
@@ -671,7 +885,8 @@ def test_test_entry_point_on_card(card, tmp_path):
     # second again (padding, its result discarded), 3 pairs' launches, each
     # tail 2 Kabsch solves and the IRLS rounds
     assert launches == {"nearest": 6, "fps": 3, "ball_sample": 3,
-                        "spt_pooled": 3, "kabsch": 6, "irls": 3}
+                        "spt_pooled": 3, "cyl_pad": 24, "bn_relu": 27,
+                        "cost_volume": 3, "kabsch": 6, "irls": 3}
     _, traj = metrics.read_trajectory(str(tmp_path / "log" / scene / "est.log"))
     assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()
 
