@@ -1,32 +1,24 @@
 // The data movement around the descriptor and cost-volume convolutions in
-// inference: each convolution's input written once, already in the layout
-// the convolution reads, instead of assembled by concatenations and
-// separate batch-norm, ReLU, roll and subtraction passes.
+// inference: conv 0's input written once, padded and channels last, as the
+// convolution kernel (csrc/conv.cu) reads it, and the cost volume in one
+// pass, instead of concatenations and 20 rolls, a stack and a subtraction.
+// The convolution kernel writes every later padded input itself.
 //
 // Replaces no TPU kernel.  The JAX package leaves these steps to XLA, which
 // fuses them into the convolutions' operands; in PyTorch
-// (nn/cylindrical.py:pad_cyl_2d, models/heads.py:CostVolume.cost) each is a
-// library pass over the whole map, about 14 GB of reads and writes a pair
-// where ~3.5 GB is needed.
+// (nn/cylindrical.py:pad_cyl_2d, models/heads.py:cost_volume) each is a
+// library pass or several over the whole map.
 //
 // Contracts, as the plain versions that kernels/cyl_cuda.py names:
 //   cyl_pad_kernel: x [N0, C, N2, H, W] (any strides) -> its cylindrical
-//     padding [N0, C, N2, H + 2, W + 2]: column j is x's column (j - 1) mod W
-//     (azimuth wrap), rows 0 and H + 1 are zeros (elevation), stored
-//     channels first or channels last.  As the epilogue of a convolution
-//     (x its output before the bias) the values are first y = x + bias[c],
-//     then relu((y - mean[c]) * rsqrt(var[c] + eps)): the bias PyTorch adds
-//     after cuDNN, the eval-mode batch norm (no affine terms) as PyTorch's
-//     CUDA kernel computes it, and the ReLU.
-//   bn_relu_kernel: the same bias, batch norm and ReLU in place over a map
-//     whose channel of element e is (e / inner) % C.
+//     padding [N0, C, N2, H + 2, W + 2] stored channels last: column j is
+//     x's column (j - 1) mod W (azimuth wrap), rows 0 and H + 1 are zeros
+//     (elevation).
 //   cost_volume_kernel: vol[m, s, e, a, c] = des1[m, e, (a - s) mod A, c]
 //     - des2[m, e, a, c] for every shift s < A, stored [M, A, E, A, C]
 //     (the channels-last layout of the [M, C, A, E, A] volume).
-// Every value is one float32 operation of the plain version's (a copy, one
-// subtraction, or the bias's addition and the batch norm's subtraction and
-// product), separately rounded (--fmad=false), so kernel and plain version
-// agree bit for bit.
+// Every value is a copy or one float32 subtraction of the plain version's,
+// so kernel and plain version agree bit for bit.
 //
 // Bound: bytes.  Each kernel reads its input once and writes its output
 // once, with consecutive threads on consecutive output addresses; the cost
@@ -57,48 +49,23 @@ struct Div {
   }
 };
 
-// The epilogue of a convolution's output v in channel c: bias (may be
-// null), batch norm, ReLU.
-__device__ __forceinline__ float bn_relu(float v, int c,
-                                         const float* __restrict__ bias,
-                                         const float* __restrict__ mean,
-                                         const float* __restrict__ var,
-                                         float eps) {
-  if (bias != nullptr) v = v + bias[c];
-  const float y = (v - mean[c]) * rsqrtf(var[c] + eps);
-  return y <= 0.0f ? 0.0f : y;  // NaN stays NaN, as in ReLU
-}
-
-// The padded map's element o: its source value (0 on the padding rows)
-// after the optional batch norm and ReLU.
+// The padded map's element o (channels last): its source value, 0 on the
+// padding rows.
 struct PadMap {
   const float* x;
   int64_t s0, s1, s2, sh, sw;
   int H, W;
   Div dC, dN2, dHp, dWp;
-  const float* bias;
-  const float* mean;
-  const float* var;
-  float eps;
-  int channels_last;
 
   __device__ __forceinline__ float at(unsigned o) const {
     unsigned r = o, c, n2, i, j, q;
-    if (channels_last) {
-      q = dC.div(r), c = r - q * dC.d, r = q;
-      q = dWp.div(r), j = r - q * dWp.d, r = q;
-      q = dHp.div(r), i = r - q * dHp.d, r = q;
-      q = dN2.div(r), n2 = r - q * dN2.d, r = q;
-    } else {
-      q = dWp.div(r), j = r - q * dWp.d, r = q;
-      q = dHp.div(r), i = r - q * dHp.d, r = q;
-      q = dN2.div(r), n2 = r - q * dN2.d, r = q;
-      q = dC.div(r), c = r - q * dC.d, r = q;
-    }
+    q = dC.div(r), c = r - q * dC.d, r = q;
+    q = dWp.div(r), j = r - q * dWp.d, r = q;
+    q = dHp.div(r), i = r - q * dHp.d, r = q;
+    q = dN2.div(r), n2 = r - q * dN2.d, r = q;
     if (i == 0 || i == (unsigned)H + 1) return 0.0f;
     const int col = j == 0 ? W - 1 : (j == (unsigned)W + 1 ? 0 : (int)j - 1);
-    const float v = x[r * s0 + c * s1 + n2 * s2 + (i - 1) * sh + col * sw];
-    return mean == nullptr ? v : bn_relu(v, c, bias, mean, var, eps);
+    return x[r * s0 + c * s1 + n2 * s2 + (i - 1) * sh + col * sw];
   }
 };
 
@@ -122,28 +89,6 @@ __global__ void cyl_pad_kernel(PadMap map, unsigned total,
       const unsigned o = base + 32 * k + lane;
       if (o < total) out[o] = v[k];
     }
-  }
-}
-
-__global__ void bn_relu_kernel(float* __restrict__ x, int n, int vec, int C,
-                               int inner, const float* __restrict__ bias,
-                               const float* __restrict__ mean,
-                               const float* __restrict__ var, float eps) {
-  const int stride = gridDim.x * blockDim.x;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n4 = vec ? n / 4 : 0;
-  float4* x4 = reinterpret_cast<float4*>(x);
-  for (int q = tid; q < n4; q += stride) {
-    float4 v = x4[q];
-    float* f = reinterpret_cast<float*>(&v);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      f[k] = bn_relu(f[k], ((4 * q + k) / inner) % C, bias, mean, var, eps);
-    }
-    x4[q] = v;
-  }
-  for (int e = 4 * n4 + tid; e < n; e += stride) {
-    x[e] = bn_relu(x[e], (e / inner) % C, bias, mean, var, eps);
   }
 }
 
@@ -186,45 +131,20 @@ int blocks_for(int64_t n) {
 }  // namespace
 
 // The padded map of x [N0, C, N2, H, W] (element strides s0, s1, s2, sh,
-// sw) into out, channels first [N0, C, N2, H + 2, W + 2] or, with
-// channels_last, [N0, N2, H + 2, W + 2, C]; mean and var (C each, or both
-// null) apply the bias (C, or null) and the batch norm and ReLU first.
-// Returns a CUDA error code;
-// cudaErrorInvalidValue for a size below 1 or a padded map of 2^30
-// elements or more.
+// sw) into out, channels last [N0, N2, H + 2, W + 2, C].  Returns a CUDA
+// error code; cudaErrorInvalidValue for a size below 1 or a padded map of
+// 2^30 elements or more.
 extern "C" int cyl_pad_launch(const float* x, int N0, int C, int N2, int H,
                               int W, int s0, int s1, int s2, int sh, int sw,
-                              const float* bias, const float* mean,
-                              const float* var, float eps,
-                              int channels_last, float* out, void* stream) {
-  if (N0 < 1 || C < 1 || N2 < 1 || H < 1 || W < 1 ||
-      (mean == nullptr) != (var == nullptr) ||
-      (bias != nullptr && mean == nullptr))
+                              float* out, void* stream) {
+  if (N0 < 1 || C < 1 || N2 < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   const int64_t total = (int64_t)N0 * C * N2 * (H + 2) * (W + 2);
   if (total >= ((int64_t)1 << 30)) return (int)cudaErrorInvalidValue;
   PadMap map{x, s0, s1, s2, sh, sw, H, W,
-             Div(C), Div(N2), Div(H + 2), Div(W + 2), bias, mean, var, eps,
-             channels_last};
+             Div(C), Div(N2), Div(H + 2), Div(W + 2)};
   cyl_pad_kernel<<<blocks_for((total + kUnroll - 1) / kUnroll), kThreads, 0,
                    (cudaStream_t)stream>>>(map, (unsigned)total, out);
-  return (int)cudaGetLastError();
-}
-
-// The bias (null: none), batch norm and ReLU of x (n elements, the channel
-// of element e (e / inner) % C) in place.  Returns a CUDA error code;
-// cudaErrorInvalidValue for a size below 1, n of 2^30 or more, or no
-// statistics.
-extern "C" int bn_relu_launch(float* x, int n, int C, int inner,
-                              const float* bias, const float* mean,
-                              const float* var, float eps, void* stream) {
-  if (n < 1 || n >= (1 << 30) || C < 1 || inner < 1 || mean == nullptr ||
-      var == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int vec = ((uintptr_t)x % 16) == 0;
-  bn_relu_kernel<<<blocks_for(vec ? n / 4 + 3 : n), kThreads, 0,
-                   (cudaStream_t)stream>>>(x, n, vec, C, inner, bias, mean,
-                                           var, eps);
   return (int)cudaGetLastError();
 }
 

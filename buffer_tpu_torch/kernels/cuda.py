@@ -8,7 +8,7 @@ loaded; :func:`build_all` compiles every source at once, one ``nvcc`` each.
 
 Every kernel is a :class:`Kernel`: its wrapper (``kernels/geom_cuda.py``,
 ``kernels/fps_cuda.py``, ``kernels/knn_cuda.py``, ``kernels/pose_cuda.py``,
-``kernels/cyl_cuda.py``)
+``kernels/cyl_cuda.py``, ``kernels/conv_cuda.py``)
 launches it on PyTorch's current stream, raises on the launch's error
 code, and counts the launch.  ``--fmad=false`` keeps every multiply and
 add separately rounded, as in the plain PyTorch versions beside each
@@ -175,7 +175,7 @@ def build_all() -> Dict[str, str]:
     kernel's build log (``-Xptxas -v`` register and spill report)."""
     # the wrapper modules register their kernels when first imported
     from buffer_tpu_torch.kernels import (  # noqa: F401
-        cyl_cuda, fps_cuda, geom_cuda, knn_cuda, pose_cuda)
+        conv_cuda, cyl_cuda, fps_cuda, geom_cuda, knn_cuda, pose_cuda)
     ks = list(KERNELS.values())
     nvcc_path()
     started = [(k, k.lib.start()) for k in ks]

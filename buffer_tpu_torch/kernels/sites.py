@@ -10,8 +10,8 @@ import contextlib
 def call_sites():
     """(module, attribute, plain version) of every kernel call site."""
     from buffer_tpu_torch.core import se3
-    from buffer_tpu_torch.kernels import (cyl_cuda, fps_cuda, geom_cuda,
-                                          knn_cuda, pose_cuda)
+    from buffer_tpu_torch.kernels import (conv_cuda, cyl_cuda, fps_cuda,
+                                          geom_cuda, knn_cuda, pose_cuda)
     from buffer_tpu_torch.models import heads, patch_embedder
     from buffer_tpu_torch.nn import cylindrical
     from buffer_tpu_torch.ops import neighbors, sampling
@@ -29,15 +29,24 @@ def call_sites():
             (ransac, "kabsch_cuda", se3.kabsch_quat),
             (refine, "irls_cuda", pose_cuda.irls_plain),
             (cylindrical, "cyl_pad_cuda", cyl_cuda.cyl_pad_plain),
-            (cylindrical, "conv_pad_cuda", cyl_cuda.conv_pad_plain),
-            (cylindrical, "conv_bn_relu_cuda", cyl_cuda.conv_bn_relu_plain),
+            (cylindrical, "conv_pad_cuda", conv_cuda.conv_pad_plain),
+            (cylindrical, "conv_bn_relu_cuda", conv_cuda.conv_bn_relu_plain),
+            (cylindrical, "conv_bias_cuda", conv_cuda.conv_bias_plain),
             (heads, "cost_volume_cuda", heads.cost_volume)]
 
 
+# the convolution sites: their kernel sums in another order than its plain
+# version (cuDNN), so a comparison of what follows the descriptors
+# (matches, poses) keeps them on the kernel, and each call is held to a
+# float64 convolution instead
+CONVOLUTIONS = ("conv_pad_cuda", "conv_bn_relu_cuda", "conv_bias_cuda")
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Within the block every kernel call site calls its plain version."""
-    sites = call_sites()
+def plain_versions(keep=()):
+    """Within the block every kernel call site calls its plain version,
+    but the sites named in ``keep``."""
+    sites = [site for site in call_sites() if site[1] not in keep]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
     for mod, name, plain in sites:
         setattr(mod, name, plain)

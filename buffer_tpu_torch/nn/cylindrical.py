@@ -6,20 +6,21 @@ and unmasked: PyTorch's own batch norm, running statistics in eval mode and
 batch statistics in train mode, the semantics of the JAX package's
 ``MaskedBatchNorm`` without a mask.
 
-In inference (eval mode, no autograd) each convolution's epilogue is one
-pass (``kernels/cyl_cuda.py``): its bias, batch norm and ReLU and the next
-convolution's cylindrical padding one write of the padded map, CostNet's
-bias, batch norm and ReLU one pass in place.  The convolutions read the
-same tensors as through :meth:`CylindricalNet.layer` and
-:meth:`CostNet.layer`, which train mode runs."""
+In inference (eval mode, no autograd) each convolution is one launch of a
+hand-written kernel (``kernels/conv_cuda.py``) with its epilogue in its
+store: its bias, batch norm and ReLU and, in ``CylindricalNet``, the next
+convolution's cylindrical padding; conv 0's padded input is one launch of
+its own (``kernels/cyl_cuda.py``).  Train mode and autograd run
+:meth:`CylindricalNet.layer` and :meth:`CostNet.layer`."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from buffer_tpu_torch.kernels.cyl_cuda import (conv_bn_relu_cuda, conv_pad_cuda,
-                                               cyl_pad_cuda)
+from buffer_tpu_torch.kernels.conv_cuda import (
+    conv_bias_cuda, conv_bn_relu_cuda, conv_pad_cuda)
+from buffer_tpu_torch.kernels.cyl_cuda import cyl_pad_cuda
 
 
 def pad_cyl_2d(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -78,18 +79,22 @@ class CylindricalNet(nn.Module):
                 x = op(x)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not inference(self):
-            for i in range(len(self.layers)):
-                x = self.layer(i, x)
-            return x
+    def step(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Convolution ``i`` as inference runs it: conv 0 pads its input
+        first; each but the last writes the next convolution's padded
+        input with its batch norm and ReLU; the last adds its bias."""
         *inner, (last,) = self.layers        # conv, batch norm, ReLU; conv
-        x = cyl_pad_cuda(x)
-        for conv, bn, _ in inner:
-            x = conv_pad_cuda(conv, bn, x)
-            if x.dim() == 5:
-                x = x[:, :, 0]                        # radial dim collapsed to 1
-        return last(x)
+        if i == len(inner):
+            return conv_bias_cuda(last, x)
+        conv, bn, _ = inner[i]
+        x = conv_pad_cuda(conv, bn, cyl_pad_cuda(x) if i == 0 else x)
+        return x[:, :, 0] if x.dim() == 5 else x    # radial dim collapsed to 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        run = self.step if inference(self) else self.layer
+        for i in range(len(self.layers)):
+            x = run(i, x)
+        return x
 
 
 class CostNet(nn.Module):
@@ -117,13 +122,17 @@ class CostNet(nn.Module):
             x = op(x)
         return x
 
+    def step(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Convolution ``i`` as inference runs it: with its batch norm and
+        ReLU, the last with its bias alone."""
+        *inner, (last,) = self.layers        # conv, batch norm, ReLU; conv
+        if i == len(inner):
+            return conv_bias_cuda(last, x)
+        conv, bn, _ = inner[i]
+        return conv_bn_relu_cuda(conv, bn, x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if inference(self):
-            *inner, (last,) = self.layers    # conv, batch norm, ReLU; conv
-            for conv, bn, _ in inner:
-                x = conv_bn_relu_cuda(conv, bn, x)
-            x = last(x)
-        else:
-            for i in range(len(self.layers)):
-                x = self.layer(i, x)
+        run = self.step if inference(self) else self.layer
+        for i in range(len(self.layers)):
+            x = run(i, x)
         return x.reshape(x.shape[0], self.out_dim)

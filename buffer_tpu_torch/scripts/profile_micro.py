@@ -13,8 +13,10 @@ one launch), the axis alignment (``align_rotation``), the fused front
 (``fused_point_features``: the SPT kernel), MiniSpinNet's network on the
 pooled map (the cylindrical CNN, attention pooling and normalization),
 then each convolution of the cylindrical CNN (8) and of the cost volume's
-CostNet (10), each with its batch norm and ReLU, with its fp32 operations
-and its share of the fp32 peak.  The pyramid, FPS and matching between the
+CostNet (10) as inference runs it (``step``: the convolution kernel with
+its bias, batch norm and ReLU, and the cylindrical CNN's padded writes;
+conv 0 with its input's padding), with its fp32 operations and its share
+of the fp32 peak.  The pyramid, FPS and matching between the
 rows run eagerly, untimed.  Each row runs on what the rows before it
 produced and is timed by
 :func:`~buffer_tpu_torch.utils.profiling.graph_time`.  Before timing, the
@@ -61,9 +63,11 @@ def micro_bodies(model, inputs, draws) -> List[Row]:
     K = cfg.point.num_keypts
     rows: List[Row] = []
 
-    def row(name, body, conv=None):
+    def row(name, body, conv=None, padded=False):
         out = body()
-        rows.append(Row(name, body, None if conv is None else conv_flops(conv, out)))
+        conv_out = out[..., 1:-1, 1:-1] if padded else out
+        rows.append(Row(name, body,
+                        None if conv is None else conv_flops(conv, conv_out)))
         return out
 
     levels = (None if inputs.lvl1 is None else
@@ -110,8 +114,8 @@ def micro_bodies(model, inputs, draws) -> List[Row]:
     cyl = model.Desc.conv_net
     x = pooled.permute(0, 4, 1, 2, 3)
     for i, layer in enumerate(cyl.layers):
-        x = row(f"cylindrical conv {i}", lambda i=i, x=x: cyl.layer(i, x),
-                layer[0])
+        x = row(f"cylindrical conv {i}", lambda i=i, x=x: cyl.step(i, x),
+                layer[0], padded=i < len(cyl.layers) - 1)
 
     s_des, t_des = desc[:K], desc[K:]
     s_equi, t_equi = equi[:K], equi[K:]
@@ -121,7 +125,7 @@ def micro_bodies(model, inputs, draws) -> List[Row]:
     net = model.Inlier.conv
     x = model.Inlier.cost(s_equi[:, band], t_equi[:, band][tgt])
     for i, layer in enumerate(net.layers):
-        x = row(f"cost volume conv {i}", lambda i=i, x=x: net.layer(i, x),
+        x = row(f"cost volume conv {i}", lambda i=i, x=x: net.step(i, x),
                 layer[0])
     return rows
 

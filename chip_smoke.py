@@ -228,12 +228,17 @@
    tail and of the KITTI pair's base tail, each held with its plain
    version to the plain version in float64 (the kernel sums in another
    order, so the gate is its largest gap there: at most 4 times the plain
-   version's, plus 1e-5), both timed.  The passes around the descriptor
-   and cost-volume convolutions (``cyl_pad_cuda``, ``conv_pad_cuda``,
-   ``conv_bn_relu_cuda``, ``cost_volume_cuda``) on every call of the first
-   pair (their count held to ``CONV``), bit for bit and stride for stride
-   their plain versions, timed beside them; the plain versions are the
-   library passes they replace (the convolutions' own time taken away).
+   version's, plus 1e-5), both timed.  The descriptor and cost-volume
+   convolutions on every call of the first pair (their count held to
+   ``CONV``): conv 0's padded input (``cyl_pad_cuda``) and the volume
+   (``cost_volume_cuda``) bit for bit their plain versions, the padded map
+   channels last; each of the 18 convolutions (``conv_pad_cuda``,
+   ``conv_bn_relu_cuda``, ``conv_bias_cuda``) held with its plain version
+   (cuDNN and the modules) to the plain version in float64 (the kernel
+   sums in another order: its largest gap at most ``CONV_FACTOR`` times
+   cuDNN's plus ``CONV_FLOOR`` of the output's scale), each timed beside
+   its plain version and beside cuDNN's convolution alone
+   (``library_ms``), with its bound and the share of it reached.
 
 Any failure exits non-zero.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it holds every kernel's
@@ -287,13 +292,19 @@ POSE_FACTOR, POSE_FLOOR = 4.0, 1e-5
 # preset refines the pose (test.pose_refine), one IRLS launch
 TAIL = {"kabsch": 2}
 REFINED_TAIL = {"kabsch": 2, "irls": 1}
-# in inference a MiniSpinNet forward writes CylindricalNet's 8 padded
-# inputs (conv 0's and 7 epilogues), and CostVolume its volume and
-# CostNet's 9 batch norms in place; a pair describes both clouds in one
-# batch
-DESCRIBE = {"cyl_pad": 8}
-COST_VOLUME = {"cost_volume": 1, "bn_relu": 9}
-CONV = {**DESCRIBE, **COST_VOLUME}
+# in inference a MiniSpinNet forward writes conv 0's padded input and runs
+# CylindricalNet's 8 convolutions through the convolution kernel (7 of them
+# writing the next padded input), and CostVolume writes its volume and runs
+# CostNet's 10 convolutions; a pair describes both clouds in one batch
+DESCRIBE = {"cyl_pad": 1, "conv": 8}
+COST_VOLUME = {"cost_volume": 1, "conv": 10}
+CONV = {"cyl_pad": 1, "conv": 18, "cost_volume": 1}
+# the convolution kernel sums Cin x taps products (up to 1152) in one
+# float32 chain, cuDNN in shorter ones on some layers, landing up to ~4
+# times nearer the float64 convolution there: the kernel's largest gap to
+# the float64 convolution may be CONV_FACTOR times cuDNN's plus CONV_FLOOR
+# of the output's largest magnitude (float32's 2^-23 times sqrt(1152))
+CONV_FACTOR, CONV_FLOOR = 4.0, 4e-6
 PER_PAIR = {
     "3DMatch": {"bknn": 4, "bnn1": 1, "nearest": 1, "fps": 1,
                 "ball_sample": 1, "spt_pooled": 1, **CONV, **REFINED_TAIL},
@@ -321,6 +332,11 @@ TRAIN_STEPS = 3
 STAGES = ("Ref", "Desc", "Keypt", "Inlier")
 
 
+def plus(a: dict, b: dict, sign: int = 1) -> dict:
+    """``a`` with ``b`` added (``sign`` -1: taken away), key by key."""
+    return {k: a.get(k, 0) + sign * b.get(k, 0) for k in {*a, *b}}
+
+
 def step_launches(ref: dict) -> tuple:
     """(train, eval) launches a step of each stage from Ref's: both clouds'
     patches in one launch past Ref; each cloud's descriptors apart, through
@@ -328,9 +344,9 @@ def step_launches(ref: dict) -> tuple:
     Desc, and in every eval step); Inlier's cost volume in its eval step
     (train mode runs the layers)."""
     train = {"Ref": ref, "Desc": dict(ref, ball_sample_points=1)}
-    frozen = dict(train["Desc"], cyl_pad=2 * DESCRIBE["cyl_pad"])
+    frozen = dict(train["Desc"], **{k: 2 * v for k, v in DESCRIBE.items()})
     train.update(Keypt=frozen, Inlier=frozen)
-    return train, dict(train, Desc=frozen, Inlier=dict(frozen, **COST_VOLUME))
+    return train, dict(train, Desc=frozen, Inlier=plus(frozen, COST_VOLUME))
 
 
 # launches per training step on the 3DMatch preset: the pyramid as above
@@ -398,7 +414,7 @@ GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
            "spt_pooled": ("spt_kernel",), "kabsch": ("kabsch_kernel",),
            "irls": ("irls_kernel",), "cyl_pad": ("cyl_pad_kernel",),
-           "bn_relu": ("bn_relu_kernel",),
+           "conv": ("conv_implicit_gemm_kernel",),
            "cost_volume": ("cost_volume_kernel",)}
 PROGRAM_TIMED = 6
 # the unrolled program (make_unrolled_register_fn): the pairs a call of
@@ -484,11 +500,6 @@ def chains_built(fn) -> int:
     (none on the CPU, where ``fn`` is eager)."""
     return sum(len(getattr(p, "chains", (p,)))
                for p in getattr(fn, "programs", {}).values())
-
-
-def plus(a: dict, b: dict, sign: int = 1) -> dict:
-    """``a`` with ``b`` added (``sign`` -1: taken away), key by key."""
-    return {k: a.get(k, 0) + sign * b.get(k, 0) for k in {*a, *b}}
 
 
 def check_launches(path: str, rose: dict, want: dict = None) -> None:
@@ -643,13 +654,34 @@ def pose_entries(calls) -> dict:
 
 
 CONV_SITES = ("cyl_pad_cuda", "conv_pad_cuda", "conv_bn_relu_cuda",
-              "cost_volume_cuda")
+              "conv_bias_cuda", "cost_volume_cuda")
 
 
-def conv_pass_calls(model, dev, inputs, draws) -> dict:
+# cuDNN's convolution kernels by name (benchmark/kernel_classes.json's
+# conv class, the port's own kernel aside)
+LIBRARY_CONVOLUTIONS = r"fprop|cf32|fft2d|fft3d|winograd|convolve|conv2d|conv3d|im2col"
+
+
+def library_convolutions(fn) -> list:
+    """The names of the cuDNN convolution kernels ``fn()`` launches, under
+    ``torch.profiler``."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and re.search(LIBRARY_CONVOLUTIONS, e.name)})
+
+
+def conv_pass_calls(model, dev, inputs, draws) -> tuple:
     """``register_pair`` of one pair with the arguments of every call of
-    the passes around the descriptor and cost-volume convolutions recorded:
-    {wrapper: [args]}."""
+    the descriptor and cost-volume convolutions and the copies around them
+    recorded: ({wrapper: [args]}, the cuDNN convolution kernels the pair
+    still ran: the modules outside the two nets, such as MiniSpinNet's
+    attention pooling)."""
     from buffer_tpu_torch.models import heads
     from buffer_tpu_torch.nn import cylindrical
     from buffer_tpu_torch.pipeline import registration
@@ -658,104 +690,164 @@ def conv_pass_calls(model, dev, inputs, draws) -> dict:
         for name in CONV_SITES:
             mod = heads if name == "cost_volume_cuda" else cylindrical
             stack.enter_context(capture(mod, name, calls[name]))
-        registration.register_pair(model, inputs, draws, device=dev)
-    return calls
+        library = library_convolutions(lambda: registration.register_pair(
+            model, inputs, draws, device=dev))
+    return calls, library
 
 
-def conv_pass_entries(calls) -> dict:
+def wide_layer(conv, bn):
+    """Float64 copies of a convolution and its batch norm (or None)."""
+    import copy
+    return (copy.deepcopy(conv).double(),
+            None if bn is None else copy.deepcopy(bn).double())
+
+
+def conv_pass_entries(calls, library=()) -> dict:
     """Each kernel over ``calls`` (``conv_pass_calls``, which must hold
-    ``CONV``'s calls: 1 padded input and 7 epilogues, 9 of CostNet, 1
-    volume): every wrapper bit for bit and stride for stride its plain
-    version; the pass alone timed by CUDA events, sums over the calls, on
-    the convolution's output as cuDNN gives it (without the bias) where the
-    pass is a convolution's epilogue: the kernel, and its plain version,
-    which is the library passes it replaces (the bias's addition, the
-    batch norm and ReLU modules and ``pad_cyl_2d``'s concatenations;
-    ``heads.cost_volume``'s rolls, stack and subtraction); bytes (each
-    input byte read once, each output byte written once) and operations
-    (the bias's addition, the batch norm's subtraction and product and the
-    ReLU; the volume's subtraction)."""
+    ``CONV``'s calls).  ``cyl_pad`` and ``cost_volume``: the wrapper bit for
+    bit its plain version (the padded map channels last, as the
+    convolution kernel reads it), the pass alone timed by CUDA events beside
+    its plain version, which is the library passes it replaces
+    (``pad_cyl_2d``'s concatenations; ``heads.cost_volume``'s rolls, stack
+    and subtraction); bytes (each input byte read once, each output byte
+    written once) and operations.  ``conv``: each of the 18 convolutions
+    with its epilogue, kernel and plain version (cuDNN and the modules)
+    against the plain version in float64 (the kernel's largest gap at most
+    CONV_FACTOR times the plain version's plus CONV_FLOOR of the output's
+    largest magnitude), launching no cuDNN convolution kernel (profiled),
+    timed beside the plain version and beside cuDNN's
+    convolution alone on the same input (``library_ms``, which the port
+    never calls in inference), all in float32 with TF32 off
+    (``full_fp32``); operations 2 Cin taps an output (the
+    epilogue's few left out), bytes the input, weights and output once;
+    sums over the calls, and each layer in ``layers``."""
     import torch
-    from buffer_tpu_torch.kernels import cyl_cuda, sites
-    from buffer_tpu_torch.models.heads import cost_volume
-    from buffer_tpu_torch.nn.cylindrical import pad_cyl_2d
-    kernel_of = {"cyl_pad_cuda": "cyl_pad", "conv_pad_cuda": "cyl_pad",
-                 "conv_bn_relu_cuda": "bn_relu", "cost_volume_cuda": "cost_volume"}
+    from buffer_tpu_torch.kernels import conv_cuda, cyl_cuda, sites
+    from buffer_tpu_torch.pipeline.registration import full_fp32
+    kernel_of = {"cyl_pad_cuda": "cyl_pad", "conv_pad_cuda": "conv",
+                 "conv_bn_relu_cuda": "conv", "conv_bias_cuda": "conv",
+                 "cost_volume_cuda": "cost_volume"}
     recorded = {k: 0 for k in CONV}
     for name in CONV_SITES:
         recorded[kernel_of[name]] += len(calls[name])
-    if recorded != CONV or len(calls["cyl_pad_cuda"]) != 1:
-        raise RuntimeError(f"conv passes: recorded {recorded} calls "
-                           f"({len(calls['cyl_pad_cuda'])} padded inputs), "
-                           f"expected {CONV} (1)")
+    if recorded != CONV:
+        raise RuntimeError(f"conv passes: recorded {recorded} calls, "
+                           f"expected {CONV}")
     plain_of = {name: plain for _, name, plain in sites.call_sites()}
-    biased = lambda conv, y: y + conv.bias.view(1, -1, *[1] * (y.dim() - 2))
-    modules = lambda conv, bn, y: torch.relu(bn(biased(conv, y)))
-    # (kernel, plain) of each pass, on what the pass reads
-    passes = {
-        "cyl_pad_cuda": (cyl_cuda.cyl_pad_cuda, lambda x: pad_cyl_2d(x, 3)),
-        "conv_pad_cuda": (
-            lambda conv, bn, y: cyl_cuda._pad(y, conv, bn),
-            lambda conv, bn, y: pad_cyl_2d(modules(conv, bn, y), 3)),
-        "conv_bn_relu_cuda": (
-            lambda conv, bn, y: cyl_cuda._bn_relu(y, conv, bn), modules),
-        "cost_volume_cuda": (cyl_cuda.cost_volume_cuda, cost_volume)}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
-               "calls": []} for k in ("cyl_pad", "bn_relu", "cost_volume")}
-    with torch.no_grad():
-        for name in CONV_SITES:
+               "calls": []} for k in ("cyl_pad", "cost_volume")}
+    out["conv"] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+                   "bytes": 0, "err": 0.0, "err_f64": 0.0,
+                   "plain_err_f64": 0.0, "layers": [],
+                   "library_convolutions_in_pair": list(library)}
+    # cuDNN in float32 with TF32 off, as the program runs it
+    with torch.no_grad(), full_fp32():
+        for name in ("cyl_pad_cuda", "cost_volume_cuda"):
             wrapper, plain = getattr(cyl_cuda, name), plain_of[name]
-            kern, plain_pass = passes[name]
             e = out[kernel_of[name]]
             for a in calls[name]:
                 got, want = wrapper(*a), plain(*a)
-                if not (torch.equal(got, want)
-                        and got.stride() == want.stride()):
+                if not torch.equal(got, want) or (
+                        name == "cyl_pad_cuda"
+                        and not conv_cuda.channels_last(got).data_ptr()
+                        == got.data_ptr()):
                     raise RuntimeError(f"{name}: kernel and plain differ at "
                                        f"{tuple(a[-1].shape)}")
-                if len(a) == 3:         # a convolution's epilogue
-                    src = cyl_cuda._without_bias(a[0], a[2])
-                    b = (a[0], a[1], src)
-                    # the in-place pass runs on a copy of its own
-                    k = (a[0], a[1], src.clone(memory_format=torch.preserve_format))
-                else:
-                    src, b, k = a[0], a, a
-                e["ms"] += cuda_ms(lambda k=k: kern(*k), 20)
-                e["plain_ms"] += cuda_ms(lambda b=b: plain_pass(*b), 5)
-                e["bytes"] += 4 * (src.numel() + got.numel()) + (
-                    4 * a[1].numel() if name == "cost_volume_cuda" else 0)
-                e["flops"] += (got.numel() if name == "cost_volume_cuda"
-                               else 4 * src.numel() * (len(a) == 3))
-                e["calls"].append(list(src.shape))
+                e["ms"] += cuda_ms(lambda a=a: wrapper(*a), 20)
+                e["plain_ms"] += cuda_ms(lambda a=a: plain(*a), 5)
+                e["bytes"] += 4 * (got.numel() + sum(t.numel() for t in a))
+                e["flops"] += got.numel() if name == "cost_volume_cuda" else 0
+                e["calls"].append(list(a[0].shape))
+        e = out["conv"]
+        layer = 0
+        for name in ("conv_pad_cuda", "conv_bn_relu_cuda", "conv_bias_cuda"):
+            wrapper, plain = getattr(conv_cuda, name), plain_of[name]
+            for a in calls[name]:
+                conv, x = a[0], a[-1]
+                bn = a[1] if len(a) == 3 else None
+                wa = (*wide_layer(conv, bn), x.double())
+                wa = wa if bn is not None else (wa[0], wa[2])
+                got, want, exact = wrapper(*a), plain(*a), plain(*wa)
+                library = library_convolutions(lambda a=a: wrapper(*a))
+                if library:
+                    raise RuntimeError(f"{name}: the kernel path launched "
+                                       f"cuDNN's convolutions {library}")
+                gap = lambda t: float((t.double() - exact).abs().max())
+                acc, acc_plain = gap(got), gap(want)
+                scale = float(exact.abs().max())
+                if not acc <= CONV_FACTOR * acc_plain + CONV_FLOOR * scale:
+                    raise RuntimeError(
+                        f"{name}: the kernel lies {acc} from the float64 "
+                        f"convolution, the plain version {acc_plain}, at "
+                        f"{tuple(x.shape)} -> {conv.out_channels}")
+                ms = cuda_ms(lambda a=a: wrapper(*a), 20)
+                plain_ms = cuda_ms(lambda a=a: plain(*a), 10)
+                lib_ms = cuda_ms(lambda: conv(x), 10)
+                y = conv(x)
+                flops = 2 * y.numel() * conv.weight[0].numel()
+                nbytes = 4 * (x.numel() + conv.weight.numel() + got.numel())
+                bound_ms = max(flops / PEAK_FP32_FLOPS,
+                               nbytes / PEAK_BYTES) * 1e3
+                e["layers"].append({
+                    "layer": layer, "site": name, "x": list(x.shape),
+                    "cout": conv.out_channels,
+                    "kernel": list(conv.kernel_size), "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "share": bound_ms / ms,
+                    "library_share": bound_ms / lib_ms, "err_f64": acc,
+                    "plain_err_f64": acc_plain, "scale": scale})
+                layer += 1
+                e["ms"] += ms
+                e["plain_ms"] += plain_ms
+                e["library_ms"] += lib_ms
+                e["flops"] += flops
+                e["bytes"] += nbytes
+                e["err"] = max(e["err"], float((got - want).abs().max()))
+                e["err_f64"] = max(e["err_f64"], acc)
+                e["plain_err_f64"] = max(e["plain_err_f64"], acc_plain)
     return out
 
 
 def plain_path_check(path: str, model, dev, inputs, draws, kernel_run) -> dict:
-    """The pair once more through the plain versions: the same keypoints and
-    mutual count, descriptors within 1e-3, pose within 1e-4."""
+    """The pair once more through the plain versions, the convolutions kept
+    on their kernel (``sites.CONVOLUTIONS``: they sum in another order than
+    cuDNN, and row 15 holds each call to a float64 convolution): the same
+    keypoints and mutual count, descriptors within 1e-3, pose within 1e-4;
+    and once more with every plain version, cuDNN's convolutions too: the
+    same keypoints, descriptors within 1e-3 (the matches downstream of a
+    rounding-level change in the descriptors are not compared)."""
     import torch
     from buffer_tpu_torch.kernels import cuda, sites
     from buffer_tpu_torch.pipeline import registration
     res_k, inter_k = kernel_run
-    before = cuda.launch_counts()
-    with sites.plain_versions():
-        res_p, inter_p = registration.register_pair(
-            model, inputs, draws, device=dev, return_intermediates=True)
-    if cuda.launch_counts() != before:
-        raise RuntimeError(f"{path}: a kernel ran on the plain path")
-    if not torch.equal(inter_k["kidx"], inter_p["kidx"]):
-        raise RuntimeError(f"{path}: keypoint indices differ between kernels "
-                           "and plain")
+    runs = []
+    for keep in (sites.CONVOLUTIONS, ()):
+        before = cuda.launch_counts()
+        with sites.plain_versions(keep=keep):
+            runs.append(registration.register_pair(
+                model, inputs, draws, device=dev, return_intermediates=True))
+        rose = {k: v - before[k] for k, v in cuda.launch_counts().items()
+                if v != before[k]}
+        if rose != ({"conv": CONV["conv"]} if keep else {}):
+            raise RuntimeError(f"{path}: the plain path launched {rose}")
+    desc_err = []
+    for _, inter_p in runs:
+        if not torch.equal(inter_k["kidx"], inter_p["kidx"]):
+            raise RuntimeError(f"{path}: keypoint indices differ between "
+                               "kernels and plain")
+        desc_err.append(max(float((inter_k[n] - inter_p[n]).abs().max())
+                            for n in ("s_des", "t_des")))
+    res_p = runs[0][0]
     pose_err = float((res_k.pose - res_p.pose).abs().max())
-    desc_err = max(float((inter_k[n] - inter_p[n]).abs().max())
-                   for n in ("s_des", "t_des"))
     if (int(res_k.num_mutual) != int(res_p.num_mutual) or pose_err > 1e-4
-            or desc_err > 1e-3):
+            or max(desc_err) > 1e-3):
         raise RuntimeError(f"{path}: kernel and plain paths disagree: mutual "
                            f"{int(res_k.num_mutual)} vs {int(res_p.num_mutual)}, "
                            f"pose {pose_err}, descriptors {desc_err}")
     out = {"path": path, "kidx_equal": True,
-           "num_mutual": int(res_k.num_mutual), "desc_max_abs_err": desc_err,
+           "num_mutual": int(res_k.num_mutual),
+           "num_mutual_cudnn": int(runs[1][0].num_mutual),
+           "desc_max_abs_err": desc_err[0], "desc_max_abs_err_cudnn": desc_err[1],
            "pose_max_abs_err": pose_err}
     print(json.dumps({"plain_path_check": out}))
     return out
@@ -1572,7 +1664,8 @@ def run_entry(argv, plain: bool = False):
     """``scripts.test.main(argv)`` with every call of the harness's
     registration program recorded, the counts set to 0 just before; with
     ``plain`` the kernels' plain versions at their call sites (captured
-    into the program).  Returns (summary, records, counts, wall seconds)."""
+    into the program), the convolutions' kept.  Returns (summary, records,
+    counts, wall seconds)."""
     from buffer_tpu_torch.eval import harness
     from buffer_tpu_torch.kernels import cuda, sites
     from buffer_tpu_torch.scripts import test as entry
@@ -1580,7 +1673,8 @@ def run_entry(argv, plain: bool = False):
     cuda.reset_launches()
     t0 = time.perf_counter()
     with recorded_programs(harness, calls), (
-            sites.plain_versions() if plain else contextlib.nullcontext()):
+            sites.plain_versions(keep=sites.CONVOLUTIONS) if plain
+            else contextlib.nullcontext()):
         out = entry.main(argv)
     return out, calls, cuda.launch_counts(), time.perf_counter() - t0
 
@@ -1719,13 +1813,15 @@ def eval_path(dev, cfg, kcfg, train_dir: str) -> dict:
         lines.append(line)
         records[(preset, flag)] = calls
 
-    # the 3DMatch tree through the plain versions: the same keypoints and
-    # mutual counts, the pose within 1e-4, pair by pair
+    # the 3DMatch tree through the plain versions (the convolutions kept on
+    # their kernel, as in plain_path_check): the same keypoints and mutual
+    # counts, the pose within 1e-4, pair by pair
     out, plain, counts, _ = run_entry(
         ["--config", "3DMatch", "--data-root", roots["3DMatch"],
          "--torch-weights", snapshots["3DMatch"][0], "--log-dir",
          os.path.join(base, "log_plain"), "--device", str(dev)], plain=True)
-    if any(counts.values()) or len(plain) != EVAL_PAIRS["3DMatch"]:
+    if ({k for k, v in counts.items() if v} != {"conv"}
+            or len(plain) != EVAL_PAIRS["3DMatch"]):
         raise RuntimeError(f"eval plain: launches {counts}, {len(plain)} pairs")
     errs = []
     for k, p in zip(records[("3DMatch", "--torch-weights")], plain):
@@ -3993,16 +4089,23 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
               ms_kitti=ke["ms"], plain_ms_kitti=ke["plain_ms"],
               calls_kitti=ke["calls"], err_f64_kitti=ke["err_f64"],
               plain_err_f64_kitti=ke["plain_err_f64"], ptxas=ptxas[kern.name])
-    # 11.-13. the passes around the descriptor and cost-volume
-    # convolutions: every call of the first pair
-    from buffer_tpu_torch.kernels import cyl_cuda
-    passes = conv_pass_entries(conv_pass_calls(model, dev, pairs[0], draws[0]))
-    for kern in (cyl_cuda.CYL_PAD, cyl_cuda.BN_RELU, cyl_cuda.COST_VOLUME):
+    # 11.-13. the descriptor and cost-volume convolutions and the copies
+    # around them: every call of the first pair
+    from buffer_tpu_torch.kernels import conv_cuda, cyl_cuda
+    passes = conv_pass_entries(*conv_pass_calls(model, dev, pairs[0], draws[0]))
+    for kern in (cyl_cuda.CYL_PAD, cyl_cuda.COST_VOLUME):
         e = passes[kern.name]
         # the plain version is the library passes: one timing for both
         entry(kern, counts[kern.name], 0.0, e["ms"], e["plain_ms"], e["flops"],
               e["bytes"], e["plain_ms"], calls=e["calls"],
               ptxas=ptxas[kern.name])
+    e = passes["conv"]
+    entry(conv_cuda.CONV, counts["conv"], e["err"], e["ms"], e["plain_ms"],
+          e["flops"], e["bytes"], e["library_ms"], err_f64=e["err_f64"],
+          plain_err_f64=e["plain_err_f64"], layers=e["layers"],
+          library_convolutions_in_pair=e["library_convolutions_in_pair"],
+          share=bound(e["flops"], e["bytes"])[0] / e["ms"],
+          ptxas=ptxas["conv"])
     derived = {"sm_clock_mhz": clock / 1e6, "sms": SMS, "fp32_lanes": LANES,
                "kernels": floors}
     print(json.dumps({"issue_floor": derived}))

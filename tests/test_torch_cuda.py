@@ -19,8 +19,8 @@ from buffer_tpu_torch.config import kitti_cfg, threedmatch_cfg, tiny_cfg
 from buffer_tpu_torch.core import se3
 from buffer_tpu_torch.data.preprocess import morton_sort
 from buffer_tpu_torch.data.synthetic import surface_pair
-from buffer_tpu_torch.kernels import (cuda, cyl_cuda, fps_cuda, geom_cuda,
-                                      knn_cuda, pose_cuda, sites)
+from buffer_tpu_torch.kernels import (conv_cuda, cuda, cyl_cuda, fps_cuda,
+                                      geom_cuda, knn_cuda, pose_cuda, sites)
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.pipeline import registration
 from buffer_tpu_torch.utils import profiling
@@ -168,6 +168,11 @@ def _tiny_pair(cfg, card, n=900, extent=0.6):
 
 
 def _kernel_vs_plain_path(cfg, inputs, card):
+    """The pair through the kernels and through the plain versions, the
+    convolutions kept on their kernel (``sites.CONVOLUTIONS``: they sum in
+    another order than cuDNN, so the matches after them are compared with
+    the kernel kept, and each convolution is held to a float64 one by
+    ``test_conv_kernel_matches_float64_at_layer_shapes``)."""
     model = BufferModel(cfg).to(card)
     draws = registration.make_draws(cfg, torch.Generator(card).manual_seed(0), card)
     cuda.reset_launches()
@@ -175,10 +180,10 @@ def _kernel_vs_plain_path(cfg, inputs, card):
                                               return_intermediates=True)
     counts = cuda.launch_counts()
     cuda.reset_launches()
-    with sites.plain_versions():
+    with sites.plain_versions(keep=sites.CONVOLUTIONS):
         res_p, int_p = registration.register_pair(model, inputs, draws,
                                                   return_intermediates=True)
-    assert max(cuda.launch_counts().values()) == 0
+    assert {k for k, v in cuda.launch_counts().items() if v} <= {"conv"}
     assert torch.equal(int_k["kidx"], int_p["kidx"])
     assert int(res_k.num_mutual) == int(res_p.num_mutual)
     torch.testing.assert_close(res_k.pose, res_p.pose, rtol=1e-5, atol=1e-5)
@@ -188,8 +193,8 @@ def _kernel_vs_plain_path(cfg, inputs, card):
 @pytest.mark.cuda
 def test_register_pair_kernels_match_plain_path(card):
     """A tiny pair on the card through the kernels and through the plain
-    versions (substituted at the kernels' call sites): identical keypoints
-    and matches, the same pose to 1e-5."""
+    versions (substituted at the kernels' call sites, the convolutions'
+    kept): identical keypoints and matches, the same pose to 1e-5."""
     cfg = tiny_cfg()
     counts = _kernel_vs_plain_path(cfg, _tiny_pair(cfg, card), card)
     for name in ("nearest", "fps", "ball_sample", "spt_pooled"):
@@ -218,7 +223,7 @@ def test_register_pair_shipped_preset_kernels_match_plain_path(card):
     assert counts["bknn"] == 4 and counts["bnn1"] == 1, counts
     for name in ("nearest", "fps", "ball_sample", "spt_pooled", "cost_volume"):
         assert counts[name] == 1, counts
-    assert counts["cyl_pad"] == 8 and counts["bn_relu"] == 9, counts
+    assert counts["cyl_pad"] == 1 and counts["conv"] == 18, counts
 
 
 def _sorted_clouds(rs, B, n, n_valid, device):
@@ -609,20 +614,44 @@ def _equi_pair(card, g, K=1500):
     return equi[:K, 1:6], equi[K:, 1:6][tgt]
 
 
+# the convolution kernel sums in another order than cuDNN (one float32
+# chain over Cin x taps, up to 1152 products; cuDNN's shorter chains land
+# up to ~4 times nearer the float64 convolution on some layers): its
+# largest gap to the float64 convolution may be CONV_FACTOR times cuDNN's
+# plus CONV_FLOOR of the output's largest magnitude (float32's 2^-23 times
+# sqrt(1152)); chip_smoke.py holds every call of a pair to the same gate
+CONV_FACTOR, CONV_FLOOR = 4.0, 4e-6
+
+
+def _wide(module):
+    import copy
+    return None if module is None else copy.deepcopy(module).double()
+
+
+def _conv_gate(got, want, exact):
+    """The kernel's output ``got`` and cuDNN's ``want`` against the
+    float64 ``exact``: (kernel gap, cuDNN gap, bound)."""
+    gap = lambda t: float((t.double() - exact).abs().max())
+    acc, acc_plain = gap(got), gap(want)
+    return acc, acc_plain, CONV_FACTOR * acc_plain + CONV_FLOOR * float(
+        exact.abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "input spt", "input sampled", "epilogue 64", "epilogue 128 channels last",
     "epilogue conv 0", "costnet channels last", "costnet channels first",
     "cost volume"])
 def test_cyl_kernels_match_plain(card, case):
-    """The passes around the descriptor and cost-volume convolutions at the
-    main path's widths (3000 patches, 1500 matches) against their plain
-    versions on the card, bit for bit and stride for stride, one launch
-    each: conv 0's padded input in the SPT kernel's layout and the sampled
-    front's (channels last); a cylindrical convolution's bias, batch norm,
-    ReLU and padded write (after cuDNN without the bias, against the
-    modules); CostNet's first convolution's bias, batch norm and ReLU in
-    place; the cost volume."""
+    """The descriptor and cost-volume convolutions and the copies around
+    them at the main path's widths (3000 patches, 1500 matches), one
+    launch each: conv 0's padded input in the SPT kernel's layout and the
+    sampled front's, bit for bit ``pad_cyl_2d`` and stored channels last;
+    a cylindrical convolution with its bias, batch norm, ReLU and padded
+    write, and CostNet's first convolution with its bias, batch norm and
+    ReLU (channels last, and channels first, which the wrapper copies into
+    channels last), against the modules in float64 within CONV_FACTOR
+    times cuDNN's gap plus CONV_FLOOR; the cost volume bit for bit."""
     from buffer_tpu_torch.kernels.geom_cuda import _pooled_layout
     from buffer_tpu_torch.models.heads import cost_volume
     cuda.build_all()
@@ -646,16 +675,16 @@ def test_cyl_kernels_match_plain(card, case):
             x = torch.randn(3000, 64, 9, 22, device=card, generator=g)
         if "channels last" in case:
             x = x.contiguous(memory_format=torch.channels_last)
-        name, args = "cyl_pad", (conv, bn, x)
-        kern, plain = cyl_cuda.conv_pad_cuda, cyl_cuda.conv_pad_plain
+        name, args = "conv", (conv, bn, x)
+        kern, plain = conv_cuda.conv_pad_cuda, conv_cuda.conv_pad_plain
     elif case.startswith("costnet"):
         fmt = (torch.channels_last_3d if "last" in case
                else torch.contiguous_format)
         conv, bn = _conv_layer(card, torch.nn.Conv3d(32, 32, 3), g)
         x = torch.randn(1500, 32, 20, 5, 20, device=card, generator=g
                         ).contiguous(memory_format=fmt)
-        name, args = "bn_relu", (conv, bn, x)
-        kern, plain = cyl_cuda.conv_bn_relu_cuda, cyl_cuda.conv_bn_relu_plain
+        name, args = "conv", (conv, bn, x)
+        kern, plain = conv_cuda.conv_bn_relu_cuda, conv_cuda.conv_bn_relu_plain
     else:
         name, args = "cost_volume", _equi_pair(card, g)
         kern, plain = cyl_cuda.cost_volume_cuda, cost_volume
@@ -663,18 +692,83 @@ def test_cyl_kernels_match_plain(card, case):
         want = plain(*args)
         before = cuda.launch_counts()[name]
         got = kern(*args)
+        if name == "conv":
+            exact = plain(_wide(conv), _wide(bn), x.double())
     assert cuda.launch_counts()[name] == before + 1
-    assert torch.equal(got, want) and got.stride() == want.stride()
+    if name == "conv":
+        acc, acc_plain, bound = _conv_gate(got, want, exact)
+        assert got.shape == want.shape and acc <= bound, (acc, acc_plain)
+    else:
+        assert torch.equal(got, want)
+    if name == "cyl_pad":
+        xl = conv_cuda.channels_last(got)
+        assert xl.data_ptr() == got.data_ptr() and xl.is_contiguous()
+
+
+def _layer_shapes():
+    """(net, index, conv, batch norm or None, input shape, wrapper) of each
+    of the 18 convolutions at 333 patches and 157 matches: every layer
+    ends on a partial tile."""
+    from buffer_tpu_torch.nn.cylindrical import CostNet, CylindricalNet
+    cyl, cost = CylindricalNet(), CostNet(20)
+    out, x = [], (333, 16, 3, 9, 22)
+    for i, grp in enumerate(cyl.layers):
+        last = len(grp) == 1
+        out.append(("cyl", i, grp[0], None if last else grp[1], x,
+                    "conv_bias" if last else "conv_pad"))
+        x = (333, grp[0].out_channels, 9, 22)
+    x = (157, 32, 20, 5, 20)
+    for i, grp in enumerate(cost.layers):
+        last = len(grp) == 1
+        out.append(("costnet", i, grp[0], None if last else grp[1], x,
+                    "conv_bias" if last else "conv_bn_relu"))
+        k = grp[0].kernel_size
+        x = (157, grp[0].out_channels, *[s - q + 1 for s, q in zip(x[2:], k)])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", range(18))
+def test_conv_kernel_matches_float64_at_layer_shapes(card, layer):
+    """Each of the 18 convolutions of CylindricalNet and CostNet at its
+    widths, 333 patches and 157 matches (a partial tile of rows in every
+    layer): the kernel within CONV_FACTOR times cuDNN's gap plus
+    CONV_FLOOR of the float64 convolution with its epilogue, the shape of
+    the modules' output, one launch, and the same bits on a second
+    launch."""
+    cuda.build_all()
+    net, i, conv, bn, shape, site = _layer_shapes()[layer]
+    g = torch.Generator(card).manual_seed(20 + layer)
+    conv, bn_card = _conv_layer(card, conv, g)
+    bn = None if bn is None else bn_card
+    fmt = {4: torch.channels_last, 5: torch.channels_last_3d}[len(shape)]
+    x = torch.randn(shape, device=card, generator=g).contiguous(
+        memory_format=fmt)
+    kern = getattr(conv_cuda, f"{site}_cuda")
+    plain = getattr(conv_cuda, f"{site}_plain")
+    args = (conv, x) if bn is None else (conv, bn, x)
+    wide = ((_wide(conv), x.double()) if bn is None
+            else (_wide(conv), _wide(bn), x.double()))
+    with torch.no_grad():
+        before = cuda.launch_counts()["conv"]
+        got = kern(*args)
+        assert cuda.launch_counts()["conv"] == before + 1
+        again = kern(*args)
+        want, exact = plain(*args), plain(*wide)
+    acc, acc_plain, bound = _conv_gate(got, want, exact)
+    assert got.shape == want.shape
+    assert acc <= bound, (net, i, acc, acc_plain)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [0, 50])
 def test_cyl_kernels_split_the_batch(card, monkeypatch, batch):
     """A map past a launch's elements is split along its batch, one launch
-    a part, and an empty batch launches nothing: every pass bit for bit
-    its plain version, and stride for stride where it holds elements (the
-    bound lowered to 30888 elements, so that 50 items take 3 to 5
-    parts)."""
+    a part, and an empty batch launches nothing: conv 0's padded input and
+    the cost volume bit for bit their plain versions (the bound lowered to
+    30888 elements, so that 50 items take 4 parts); the convolution kernel
+    launches nothing for an empty batch and gives its shape."""
     from buffer_tpu_torch.models.heads import cost_volume
     cuda.build_all()
     g = torch.Generator(card).manual_seed(10)
@@ -690,10 +784,6 @@ def test_cyl_kernels_split_the_batch(card, monkeypatch, batch):
     for name, kern, plain, args, launches in (
             ("cyl_pad", cyl_cuda.cyl_pad_cuda, cyl_cuda.cyl_pad_plain,
              (x,), parts(8 * 11 * 24)),
-            ("cyl_pad", cyl_cuda.conv_pad_cuda, cyl_cuda.conv_pad_plain,
-             (conv, bn, x), parts(12 * 9 * 22)),
-            ("bn_relu", cyl_cuda.conv_bn_relu_cuda,
-             cyl_cuda.conv_bn_relu_plain, (conv, bn, x), parts(12 * 7 * 20)),
             ("cost_volume", cyl_cuda.cost_volume_cuda, cost_volume, vol,
              int(batch > 0))):
         with torch.no_grad():
@@ -702,18 +792,30 @@ def test_cyl_kernels_split_the_batch(card, monkeypatch, batch):
             got = kern(*args)
         assert cuda.launch_counts()[name] == before + launches, name
         assert torch.equal(got, want), name
-        assert batch == 0 or got.stride() == want.stride(), name
-    assert batch == 0 or (parts(8 * 11 * 24), parts(12 * 9 * 22),
-                          parts(12 * 7 * 20)) == (4, 5, 3)
+    assert batch == 0 or parts(8 * 11 * 24) == 4
+    with torch.no_grad():
+        before = cuda.launch_counts()["conv"]
+        got = conv_cuda.conv_pad_cuda(conv, bn, x)
+        assert cuda.launch_counts()["conv"] == before + int(batch > 0)
+        assert got.shape == conv_cuda.conv_pad_plain(conv, bn, x).shape
+
+
+def _forward_gate(got, want, exact) -> None:
+    """Each output of the kernel path within CONV_FACTOR times the plain
+    path's gap to the float64 path plus CONV_FLOOR of its scale."""
+    for a, b, e in zip(got, want, exact):
+        acc, acc_plain, bound = _conv_gate(a, b, e)
+        assert acc <= bound, (acc, acc_plain)
 
 
 @pytest.mark.cuda
 def test_descriptor_and_cost_volume_forward_kernels_match_plain(card):
     """A MiniSpinNet forward over 3000 pooled maps and a CostVolume forward
     over 1500 matches in inference, through the kernels and through the
-    plain versions (substituted at their call sites): descriptors,
-    equivariant maps and azimuths bit for bit; the kernels launch 8 padded
-    writes, 9 batch norms and 1 volume."""
+    plain versions (substituted at their call sites), against the plain
+    versions in float64: descriptors, equivariant maps and azimuths within
+    the convolutions' gate; the kernels launch 1 padded input, 18
+    convolutions and 1 volume, and repeat bit for bit."""
     from buffer_tpu_torch.kernels.geom_cuda import _pooled_layout
     from buffer_tpu_torch.models.heads import CostVolume
     from buffer_tpu_torch.models.patch_embedder import MiniSpinNet
@@ -731,27 +833,32 @@ def test_descriptor_and_cost_volume_forward_kernels_match_plain(card):
                             3, 20, 7)
     tgt = torch.randint(0, 1500, (1500,), device=card, generator=g)
 
-    def forward():
+    def forward(desc, cv, pooled):
         with torch.no_grad():
             d, e = desc(pooled)
             return d, e, cv(e[:1500, 1:6], e[1500:, 1:6][tgt])
     cuda.reset_launches()
-    got = forward()
+    got = forward(desc, cv, pooled)
     assert {k: v for k, v in cuda.launch_counts().items() if v} == {
-        "cyl_pad": 8, "bn_relu": 9, "cost_volume": 1}
+        "cyl_pad": 1, "conv": 18, "cost_volume": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, forward(desc, cv, pooled)))
     with sites.plain_versions():
-        want = forward()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+        want = forward(desc, cv, pooled)
+        exact = forward(_wide(desc), _wide(cv), pooled.double())
+    _forward_gate(got, want, exact)
 
 
 @pytest.mark.cuda
 def test_program_plain_versions_match_kernel_path(card):
     """One registration program at the 3DMatch plan through the kernels,
-    and one built under ``plain_versions()`` through the plain versions:
-    the same keypoints and mutual count, descriptors within 2e-5 (the SPT
-    front's gate), the pose within 1e-5; a replay of the first launches the
-    fused passes (8 padded writes, 9 batch norms, 1 volume), of the second
-    no kernel."""
+    and two built under ``plain_versions``: with the convolutions kept on
+    their kernel (``sites.CONVOLUTIONS``), the same keypoints and mutual
+    count, descriptors within 2e-5 (the SPT front's gate), the pose within
+    1e-5; through every plain version (cuDNN's convolutions too, which sum
+    in another order), the same keypoints and descriptors within 2e-5.  A
+    replay of the kernel program launches conv 0's padded input, the 18
+    convolutions and the volume; of the plain ones, the 18 convolutions
+    and no kernel."""
     cuda.build_all()
     cfg = threedmatch_cfg()
     model = BufferModel(cfg, seed=0).to(card)
@@ -763,18 +870,25 @@ def test_program_plain_versions_match_kernel_path(card):
     cuda.reset_launches()
     res_k, int_k = fn(pair, draws)
     rose = cuda.launch_counts()
-    assert {k: rose[k] for k in ("cyl_pad", "bn_relu", "cost_volume")} == {
-        "cyl_pad": 8, "bn_relu": 9, "cost_volume": 1}
-    with sites.plain_versions():
-        plain = registration.make_register_fn(model, return_intermediates=True)
-        plain(pair, draws)
-        cuda.reset_launches()
-        res_p, int_p = plain(pair, draws)
-        assert max(cuda.launch_counts().values()) == 0
-    assert torch.equal(int_k["kidx"], int_p["kidx"])
+    assert {k: rose[k] for k in ("cyl_pad", "conv", "cost_volume")} == {
+        "cyl_pad": 1, "conv": 18, "cost_volume": 1}
+    outs = []
+    for keep in (sites.CONVOLUTIONS, ()):
+        with sites.plain_versions(keep=keep):
+            plain = registration.make_register_fn(model,
+                                                  return_intermediates=True)
+            plain(pair, draws)
+            cuda.reset_launches()
+            outs.append(plain(pair, draws))
+            assert {k: v for k, v in cuda.launch_counts().items() if v} == (
+                {"conv": 18} if keep else {})
+    for res_p, int_p in outs:
+        assert torch.equal(int_k["kidx"], int_p["kidx"])
+        for name in ("s_des", "t_des", "s_equi", "t_equi"):
+            torch.testing.assert_close(int_k[name], int_p[name], rtol=0,
+                                       atol=2e-5)
+    res_p, int_p = outs[0]
     assert int(res_k.num_mutual) == int(res_p.num_mutual)
-    for name in ("s_des", "t_des", "s_equi", "t_equi"):
-        torch.testing.assert_close(int_k[name], int_p[name], rtol=0, atol=2e-5)
     torch.testing.assert_close(res_k.pose, res_p.pose, rtol=1e-5, atol=1e-5)
 
 
@@ -788,9 +902,9 @@ def test_cyl_wrappers_raise(card):
     x = torch.randn(4, 8, 9, 22, device=card)
     with torch.no_grad():
         with pytest.raises(ValueError):
-            cyl_cuda.conv_pad_cuda(conv.cpu(), bn, x)
+            conv_cuda.conv_pad_cuda(conv.cpu(), bn, x)
     with pytest.raises(RuntimeError):
-        cyl_cuda.conv_bn_relu_cuda(conv.to(card), bn, x)
+        conv_cuda.conv_bn_relu_cuda(conv.to(card), bn, x)
     with pytest.raises(RuntimeError):
         cyl_cuda.cyl_pad_cuda(x.requires_grad_())
     d = torch.randn(3, 5, 20, 32, device=card)
@@ -885,7 +999,7 @@ def test_test_entry_point_on_card(card, tmp_path):
     # second again (padding, its result discarded), 3 pairs' launches, each
     # tail 2 Kabsch solves and the IRLS rounds
     assert launches == {"nearest": 6, "fps": 3, "ball_sample": 3,
-                        "spt_pooled": 3, "cyl_pad": 24, "bn_relu": 27,
+                        "spt_pooled": 3, "cyl_pad": 3, "conv": 54,
                         "cost_volume": 3, "kabsch": 6, "irls": 3}
     _, traj = metrics.read_trajectory(str(tmp_path / "log" / scene / "est.log"))
     assert traj.shape == (2, 4, 4) and np.isfinite(traj).all()

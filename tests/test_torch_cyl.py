@@ -1,15 +1,16 @@
-"""The passes around the descriptor and cost-volume convolutions in
-inference (``kernels/cyl_cuda.py``, ``csrc/cyl.cu``) on the CPU.
+"""The copies around the descriptor and cost-volume convolutions in
+inference (``kernels/cyl_cuda.py``, ``csrc/cyl.cu``) and the inference
+forwards of the nets on the CPU.
 
-The plain versions are the operations train mode runs (``pad_cyl_2d``
-after the modules, ``heads.cost_volume``).  Here: the padded map's memory
-format the kernel path allocates is ``pad_cyl_2d``'s; the launch-fixed
-division and the batch split the launchers rely on; PyTorch models of the
-kernels' index arithmetic against the plain versions; the inference
-forwards of ``CylindricalNet``, ``CostNet`` and ``CostVolume`` against the
-layer by layer path; the call sites; bad inputs.  The kernels themselves
-are held to the plain versions on the card by ``tests/test_torch_cuda.py``
-and ``chip_smoke.py``.
+The plain versions are the operations train mode runs (``pad_cyl_2d``,
+``heads.cost_volume``, the modules).  Here: the padded map the kernel path
+allocates is what the convolution kernel reads without a copy; the
+launch-fixed division and the batch split the launchers rely on; PyTorch
+models of the kernels' index arithmetic against the plain versions; the
+inference forwards of ``CylindricalNet``, ``CostNet`` and ``CostVolume``
+against the layer by layer path; the call sites; bad inputs.  The kernels
+themselves are held to the plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import pytest
@@ -17,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from buffer_tpu_torch.kernels import cuda, cyl_cuda, sites
+from buffer_tpu_torch.kernels import conv_cuda, cuda, cyl_cuda, sites
 from buffer_tpu_torch.kernels.geom_cuda import _pooled_layout
 from buffer_tpu_torch.models import heads
 from buffer_tpu_torch.models.heads import CostVolume
@@ -78,14 +79,18 @@ def _memory(t: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("layout", LAYOUTS + ["conv0 5-D output",
                                                "conv0 5-D output channels last"])
-def test_padded_format_is_pad_cyl_2d_layout(layout):
-    """The kernel path allocates the padded map in ``padded_format(x)``:
-    the strides ``pad_cyl_2d(x, 3)`` gives, in every layout the
-    convolutions meet, so cuDNN reads the same tensors either way."""
+def test_padded_map_is_what_the_conv_kernel_reads(layout):
+    """The kernel path writes conv 0's padded input into
+    ``padded_empty(x)``: ``pad_cyl_2d(x, 3)``'s shape, stored channels last
+    and dense, so the convolution kernel reads it as a view, in every
+    layout the convolutions meet; on the CPU the wrapper is
+    ``pad_cyl_2d``."""
     x = _map(layout, _gen(1))
     want = pad_cyl_2d(x, 3)
-    got = torch.empty(want.shape, memory_format=cyl_cuda.padded_format(x))
-    assert got.stride() == want.stride()
+    got = cyl_cuda.padded_empty(x)
+    assert got.shape == want.shape
+    xl = conv_cuda.channels_last(got)
+    assert xl.data_ptr() == got.data_ptr() and xl.is_contiguous()
     assert _same(cyl_cuda.cyl_pad_cuda(x), want)
 
 
@@ -113,7 +118,7 @@ def test_conv_bn_relu_plain_matches_layer(fmt):
     conv, bn = _layer(nn.Conv3d(8, 8, (3, 1, 3)), g)
     x = torch.randn(4, 8, 6, 3, 6, generator=g).contiguous(memory_format=fmt)
     with torch.no_grad():
-        assert _same(cyl_cuda.conv_bn_relu_plain(conv, bn, x),
+        assert _same(conv_cuda.conv_bn_relu_plain(conv, bn, x),
                      nn.ReLU()(bn(conv(x))))
 
 
@@ -151,40 +156,30 @@ def test_launch_parts_refuse_an_item_past_a_launch():
 # ---------------------------------------------------------------------------
 
 
-def _cyl_pad_model(x: torch.Tensor, channels_last: bool):
-    """csrc/cyl.cu cyl_pad_kernel: every output element in memory order,
-    its coordinates from its index, its source element from x's strides.
-    Returns (values, the channel each element's statistics are read at)."""
+def _cyl_pad_model(x: torch.Tensor):
+    """csrc/cyl.cu cyl_pad_kernel: every output element in memory order
+    (channels last), its coordinates from its index, its source element
+    from x's strides."""
     xs = x if x.dim() == 5 else x.unsqueeze(2)
     N0, C, N2, H, W = xs.shape
     s0, s1, s2, sh, sw = xs.stride()
     Hp, Wp = H + 2, W + 2
     r = torch.arange(N0 * C * N2 * Hp * Wp)
-    if channels_last:
-        c = r % C
-        r = r // C
-        j = r % Wp
-        r = r // Wp
-        i = r % Hp
-        r = r // Hp
-        n2 = r % N2
-        r = r // N2
-    else:
-        j = r % Wp
-        r = r // Wp
-        i = r % Hp
-        r = r // Hp
-        n2 = r % N2
-        r = r // N2
-        c = r % C
-        r = r // C
+    c = r % C
+    r = r // C
+    j = r % Wp
+    r = r // Wp
+    i = r % Hp
+    r = r // Hp
+    n2 = r % N2
+    r = r // N2
     col = torch.where(j == 0, W - 1, torch.where(j == W + 1, 0, j - 1))
     inside = (i >= 1) & (i <= H)
     off = torch.where(inside, r * s0 + c * s1 + n2 * s2 + (i - 1) * sh
                       + col * sw, 0)
     flat = torch.as_strided(xs, (int(off.max()) + 1,), (1,),
                             xs.storage_offset())
-    return torch.where(inside, flat[off], torch.zeros(())), c
+    return torch.where(inside, flat[off], torch.zeros(()))
 
 
 def _div(n: torch.Tensor, d: int) -> torch.Tensor:
@@ -240,8 +235,8 @@ def _cost_volume_model(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
 def test_kernel_index_models_match_plain(case):
     """The kernels' index arithmetic, transcribed: ``cyl_pad_kernel``'s
     decomposition of an output index and its source offset give
-    ``pad_cyl_2d(x, 3)`` in its memory order, each element's statistics
-    read at its channel coordinate; ``cost_volume_kernel``'s staged
+    ``pad_cyl_2d(x, 3)`` in channels-last memory order;
+    ``cost_volume_kernel``'s staged
     float4s give ``heads.cost_volume`` in its memory order."""
     kind, arg = case
     if kind == "cost_volume":
@@ -251,13 +246,8 @@ def test_kernel_index_models_match_plain(case):
                            _memory(heads.cost_volume(d1, d2)))
         return
     x = _map(arg, _gen(5))
-    want = pad_cyl_2d(x, 3)
-    fmt = cyl_cuda.padded_format(x)
-    got, chan = _cyl_pad_model(x, fmt != torch.contiguous_format)
-    assert torch.equal(got, _memory(want))
-    coord = torch.arange(x.shape[1]).view(1, -1, *[1] * (x.dim() - 2))
-    assert torch.equal(chan, _memory(coord.expand(want.shape).contiguous(
-        memory_format=fmt)))
+    want = conv_cuda.channels_last(pad_cyl_2d(x, 3))
+    assert torch.equal(_cyl_pad_model(x), want.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +270,8 @@ def _layers(net, x):
 
 
 SITES = ((cylindrical, "cyl_pad_cuda"), (cylindrical, "conv_pad_cuda"),
-         (cylindrical, "conv_bn_relu_cuda"), (heads, "cost_volume_cuda"))
+         (cylindrical, "conv_bn_relu_cuda"), (cylindrical, "conv_bias_cuda"),
+         (heads, "cost_volume_cuda"))
 
 
 def _counted(monkeypatch):
@@ -299,9 +290,10 @@ def _counted(monkeypatch):
 @pytest.mark.parametrize("layout", ["spt 5-D", "sampled 5-D"])
 def test_inference_forwards_match_layers(monkeypatch, layout):
     """Eval mode without autograd: ``CylindricalNet`` (conv 0's padded
-    input and 7 epilogues) and ``CostVolume`` (the one-pass volume,
-    CostNet's 9 epilogues in place) return what their layer by layer paths
-    return, bit for bit."""
+    input, 7 padded convolutions and the last) and ``CostVolume`` (the
+    one-pass volume, CostNet's 9 convolutions with their epilogues and the
+    last) return what their layer by layer paths return, bit for bit: on
+    the CPU the call sites take the modules."""
     g = _gen(7)
     cyl = _with_stats(CylindricalNet(), g)
     cv = _with_stats(CostVolume(20), g)
@@ -319,7 +311,8 @@ def test_inference_forwards_match_layers(monkeypatch, layout):
     prob = torch.softmax(want_cv.reshape(-1, 20), dim=-1)
     assert torch.equal(got, torch.sum(prob * torch.arange(20.0), dim=-1))
     assert calls == {"cyl_pad_cuda": 1, "conv_pad_cuda": 7,
-                     "conv_bn_relu_cuda": 18, "cost_volume_cuda": 1}
+                     "conv_bn_relu_cuda": 18, "conv_bias_cuda": 3,
+                     "cost_volume_cuda": 1}
 
 
 @pytest.mark.parametrize("mode", ["train", "eval with autograd"])
@@ -344,33 +337,37 @@ def test_training_forwards_keep_the_layers(monkeypatch, mode):
 
 
 def test_cyl_sites_switch_to_plain_versions():
-    """The four call sites are kernel sites: ``plain_versions()`` puts the
+    """The five call sites are kernel sites: ``plain_versions()`` puts the
     plain versions there and restores the wrappers; on the CPU the
     wrappers launch nothing."""
     plain = {"cyl_pad_cuda": cyl_cuda.cyl_pad_plain,
-             "conv_pad_cuda": cyl_cuda.conv_pad_plain,
-             "conv_bn_relu_cuda": cyl_cuda.conv_bn_relu_plain,
+             "conv_pad_cuda": conv_cuda.conv_pad_plain,
+             "conv_bn_relu_cuda": conv_cuda.conv_bn_relu_plain,
+             "conv_bias_cuda": conv_cuda.conv_bias_plain,
              "cost_volume_cuda": heads.cost_volume}
+    wrapper = {name: getattr(conv_cuda if name.startswith("conv_") else
+                             cyl_cuda, name) for _, name in SITES}
     for mod, name in SITES:
         assert (mod, name, plain[name]) in sites.call_sites()
-        assert getattr(mod, name) is getattr(cyl_cuda, name)
+        assert getattr(mod, name) is wrapper[name]
     with sites.plain_versions():
         for mod, name in SITES:
             assert getattr(mod, name) is plain[name]
         assert sites.plain_active()
     for mod, name in SITES:
-        assert getattr(mod, name) is getattr(cyl_cuda, name)
+        assert getattr(mod, name) is wrapper[name]
     cuda.reset_launches()
     g = _gen(9)
-    conv, bn = _layer(nn.Conv2d(6, 12, 3), g)
-    x = torch.randn(2, 6, 9, 22, generator=g)
+    conv, bn = _layer(nn.Conv2d(8, 12, 3), g)
+    x = torch.randn(2, 8, 9, 22, generator=g)
     with torch.no_grad():
         cyl_cuda.cyl_pad_cuda(x)
-        cyl_cuda.conv_pad_cuda(conv, bn, x)
-        cyl_cuda.conv_bn_relu_cuda(conv, bn, x)
+        conv_cuda.conv_pad_cuda(conv, bn, x)
+        conv_cuda.conv_bn_relu_cuda(conv, bn, x)
+        conv_cuda.conv_bias_cuda(conv, x)
     cyl_cuda.cost_volume_cuda(*_descriptors(g))
     counts = cuda.launch_counts()
-    assert {"cyl_pad", "bn_relu", "cost_volume"} <= set(counts)
+    assert {"cyl_pad", "conv", "cost_volume"} <= set(counts)
     assert set(counts.values()) == {0}
 
 
@@ -385,25 +382,25 @@ def test_cyl_wrappers_raise_on_bad_inputs(case):
     before choosing the plain version or the kernel, so a CPU tensor or a
     layer the kernel would not take raises too."""
     g = _gen(11)
-    x = torch.randn(2, 6, 9, 22, generator=g)
-    conv, bn = _layer(nn.Conv2d(6, 12, 3), g)
+    x = torch.randn(2, 8, 9, 22, generator=g)
+    conv, bn = _layer(nn.Conv2d(8, 12, 3), g)
     d = torch.randn(3, 5, 20, 32, generator=g)
     affine = nn.BatchNorm2d(12).eval()
-    circular = nn.Conv2d(6, 12, 3, padding=1, padding_mode="circular")
+    circular = nn.Conv2d(8, 12, 3, padding=1, padding_mode="circular")
     call = {
         "pad float64": lambda: cyl_cuda.cyl_pad_cuda(x.double()),
         "pad 3-D": lambda: cyl_cuda.cyl_pad_cuda(x[0]),
-        "conv_pad 3-D": lambda: cyl_cuda.conv_pad_cuda(conv, bn, x[0]),
-        "conv_pad channels": lambda: cyl_cuda.conv_pad_cuda(conv, bn, x[:, :4]),
-        "conv_pad affine batch norm": lambda: cyl_cuda.conv_pad_cuda(
+        "conv_pad 3-D": lambda: conv_cuda.conv_pad_cuda(conv, bn, x[0]),
+        "conv_pad channels": lambda: conv_cuda.conv_pad_cuda(conv, bn, x[:, :4]),
+        "conv_pad affine batch norm": lambda: conv_cuda.conv_pad_cuda(
             conv, affine, x),
-        "conv_pad train-mode batch norm": lambda: cyl_cuda.conv_pad_cuda(
+        "conv_pad train-mode batch norm": lambda: conv_cuda.conv_pad_cuda(
             conv, nn.BatchNorm2d(12, affine=False), x),
-        "conv_pad batch norm width": lambda: cyl_cuda.conv_pad_cuda(
+        "conv_pad batch norm width": lambda: conv_cuda.conv_pad_cuda(
             conv, nn.BatchNorm2d(8, affine=False).eval(), x),
-        "conv_pad circular padding": lambda: cyl_cuda.conv_pad_cuda(
+        "conv_pad circular padding": lambda: conv_cuda.conv_pad_cuda(
             circular, bn, x),
-        "conv_bn_relu channels": lambda: cyl_cuda.conv_bn_relu_cuda(
+        "conv_bn_relu channels": lambda: conv_cuda.conv_bn_relu_cuda(
             conv, bn, x[:, :4]),
         "volume float64": lambda: cyl_cuda.cost_volume_cuda(d.double(),
                                                             d.double()),
