@@ -16,11 +16,12 @@ convolutions), as the reference runs at ``default_matmul_precision
 ("highest")``.  Randomness is an input: :class:`Draws`.
 
 :func:`register_pair` runs a pair operator by operator;
-:func:`make_register_fn` runs the same two parts, :func:`pair_front` and
-:func:`pair_tail`, as captured CUDA graphs, as the JAX package runs
-``register_pair`` as one jitted program; :func:`make_unrolled_register_fn`
-runs U pairs' graphs side by side on streams of their own, as the JAX
-package compiles U ``register_pair`` traces into one program.
+:func:`make_unrolled_register_fn` runs the same two parts,
+:func:`pair_front` and :func:`pair_tail`, of U pairs as captured CUDA
+graphs side by side on streams of their own, as the JAX package compiles
+U ``register_pair`` traces into one program; :func:`make_register_fn` is
+that program at U = 1, as the JAX package runs ``register_pair`` as one
+jitted program.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from buffer_tpu_torch import resolve_device
 from buffer_tpu_torch.config import Config
+from buffer_tpu_torch.core import graphs
 from buffer_tpu_torch.core.numerics import full_fp32
 from buffer_tpu_torch.kernels import cuda
 from buffer_tpu_torch.models import patch_embedder as pe
@@ -411,146 +413,85 @@ def pair_tail(cfg: Config, front: Front, gumbel: torch.Tensor, iters: int,
     return pose, torch.sum(ransac_inl)
 
 
-def _signature(inputs: PairInputs, draws: Draws) -> tuple:
-    """Shapes and dtypes of every field (None for an absent one): the key
-    of a captured program, as jit's cache keys on shapes and dtypes."""
-    return tuple(None if t is None else (tuple(t.shape), t.dtype)
-                 for t in (*inputs, *draws))
+_STALE = ("make_register_fn: the model's parameters or buffers are not the "
+          "tensors the graphs were captured with (load weights in place, "
+          "e.g. load_state_dict, or make a new fn)")
 
 
-def _clone(x):
-    """A copy of every tensor in a nest of tuples, named tuples and dicts."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, dict):
-        return {k: _clone(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        items = [_clone(v) for v in x]
-        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-    return x
+class _Chain:
+    """One pair's registration as CUDA graphs for one input signature: the
+    front, and a tail for each budget (base and, with
+    ``static.low_match_boost``, the low-match one).  :meth:`replay_front`
+    copies the caller's tensors into the static input buffers and replays
+    the front; :meth:`replay_tail` replays the taken tail.  A
+    :class:`_Program` reads the mutual count between the two and copies
+    the outputs.
 
-
-def _stack(xs: list):
-    """The nests ``xs`` (equal structure) with every tensor stacked along a
-    new leading axis; other leaves are taken from the first."""
-    x = xs[0]
-    if isinstance(x, torch.Tensor):
-        return torch.stack(xs)
-    if isinstance(x, dict):
-        return {k: _stack([y[k] for y in xs]) for k in x}
-    if isinstance(x, tuple):
-        items = [_stack(list(ys)) for ys in zip(*xs)]
-        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-    return x
-
-
-def capture_graph(run, pool, stream=None):
-    """Captures ``run()`` as a CUDA graph in memory pool ``pool`` on
-    ``stream`` (default: PyTorch's capture stream); returns
-    (the graph, ``run``'s outputs, the kernels' launch counts of one
-    replay).  The counts are recorded at capture and taken back, since a
-    capture launches nothing; a caller adds them on each replay."""
-    graph = torch.cuda.CUDAGraph()
-    before = cuda.launch_counts()
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            out = run()
-    finally:
-        after = cuda.launch_counts()
-        launches = {k: n - before[k] for k, n in after.items()
-                    if n != before[k]}
-        cuda.add_launches({k: -n for k, n in launches.items()})
-    return graph, out, launches
-
-
-def _state_ptrs(model: BufferModel) -> tuple:
-    return tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers()))
-
-
-class _GraphProgram:
-    """One input signature's registration as CUDA graphs: the front, and a
-    tail for each budget (base and, with ``static.low_match_boost``, the
-    low-match one).  A call copies the caller's tensors into the static
-    input buffers and replays the front (:meth:`replay_front`), reads the
-    mutual count, replays the taken tail (:meth:`replay_tail`) and returns
-    copies of the outputs.
-
-    Each program has a stream and a graph memory pool of its own.  Its
+    Each chain has a stream and a graph memory pool of its own.  Its
     warm-up, captures and replays run on its stream, forked from the
     caller's stream and joined back to it, so the cuBLAS workspace that a
-    capture bakes in is its stream's alone, and the programs of an
-    unrolled group (:func:`make_unrolled_register_fn`) replay side by side
-    without sharing memory.  Within a program the graphs replay one after
-    another on its stream, and every tensor a later graph reads (the
-    front's outputs, the static inputs) and every graph's outputs stay
-    held by the program, so a graph only reuses pool memory that no live
-    output of another occupies.
+    capture bakes in is its stream's alone, and the chains of a program
+    replay side by side without sharing memory.  Within a chain the graphs
+    replay one after another on its stream, and every tensor a later graph
+    reads (the front's outputs, the static inputs) and every graph's
+    outputs stay held by the chain, so a graph only reuses pool memory
+    that no live output of another occupies.
 
     A replay runs no Python, so the kernels' launch counts of each graph
-    are recorded at capture (and taken back: a capture launches nothing)
-    and added on each replay.  The front and each tail are captured with a
+    are recorded at capture (``graphs.capture_graph``) and added on each
+    replay.  The front and each tail are captured with a
     :class:`StageTimer` of their own, whose events every replay records
     again; a call reads them into its record (:class:`_Calls`).
-    ``capture_s``: the host seconds that the captures took; the whole
-    first call (the eager warm-up and the captures) adds to the
-    ``register.capture_s`` counter."""
+    ``first``: the eager warm-up's result; ``capture_s``: the host seconds
+    that the captures took; the whole build (the eager warm-up and the
+    captures) adds to the ``register.capture_s`` counter."""
 
     def __init__(self, model: BufferModel, dev: torch.device,
                  return_intermediates: bool, inputs: PairInputs, draws: Draws):
         t0 = time.perf_counter()
         self._capture(model, dev, return_intermediates, inputs, draws)
         profiling.count("register.capture_s", time.perf_counter() - t0)
-        self.calls = _Calls()
 
     def _capture(self, model, dev, return_intermediates, inputs, draws):
-        self.model, self.cfg, self.dev = model, model.cfg, dev
-        self.return_intermediates = return_intermediates
-        self.state = _state_ptrs(model)
+        self.cfg, self.return_intermediates = model.cfg, return_intermediates
+        self.guard = graphs.Guard(
+            lambda: (*model.parameters(), *model.buffers()), _STALE)
         self.stream = torch.cuda.Stream(dev)
-        empty = lambda t: None if t is None else torch.empty(
-            t.shape, dtype=t.dtype, device=dev)
-        self.inputs = PairInputs(*(empty(t) for t in inputs))
-        self.draws = Draws(*(empty(t) for t in draws))
+        self.inputs, self.draws = graphs.empty_like((inputs, draws), dev)
+        self.static = (*self.inputs, *self.draws)
         budgets = ((False, True) if self.cfg.static.low_match_boost
                    else (False,))
-        caller = torch.cuda.current_stream(dev)
-        self.stream.wait_stream(caller)
-        with torch.no_grad(), full_fp32(), torch.cuda.stream(self.stream):
-            # warm-up: an eager run, both tails included (first-use builds,
-            # handles and attributes happen here, not during capture); its
-            # result is the first call's.  The tail the pair does not take
-            # runs too, so the first call also counts that tail's launches
+
+        def eager():
+            # both tails run (first-use builds, handles and attributes
+            # happen here, not during capture), so the first call also
+            # counts the launches of the tail the pair does not take
             self._load(inputs, draws)
             front, inter = pair_front(model, self.inputs, self.draws)
             boost = boost_taken(self.cfg, front.num_mutual)
             tails = {b: pair_tail(self.cfg, front,
                                   *tail_budget(self.cfg, self.draws, b))
                      for b in budgets}
-            first = self._outputs(front, inter, *tails[boost])
-            caller.wait_stream(self.stream)
-            with torch.cuda.stream(caller):
-                self.first = _clone(first)
-            del front, inter, tails, first
+            return self._outputs(front, inter, *tails[boost])
 
+        with torch.no_grad(), full_fp32():
+            self.first = graphs.clone(graphs.warm(eager, dev, self.stream))
             t0 = time.perf_counter()
             self.pool = torch.cuda.graph_pool_handle()
             self.front_timer = StageTimer()
             self.front_graph, (self.front, self.inter), self.front_launches = \
-                capture_graph(lambda: pair_front(model, self.inputs,
-                                                 self.draws,
-                                                 self.front_timer.mark),
-                              self.pool, self.stream)
+                graphs.capture_graph(lambda: pair_front(
+                    model, self.inputs, self.draws, self.front_timer.mark),
+                    self.pool, self.stream)
             self.tail_timers = {b: StageTimer() for b in budgets}
-            self.tails = {b: capture_graph(lambda b=b: pair_tail(
+            self.tails = {b: graphs.capture_graph(lambda b=b: pair_tail(
                 self.cfg, self.front, *tail_budget(self.cfg, self.draws, b),
                 self.tail_timers[b].mark), self.pool, self.stream)
                 for b in budgets}
             self.capture_s = time.perf_counter() - t0   # host seconds
 
     def _load(self, inputs: PairInputs, draws: Draws) -> None:
-        for dst, src in zip((*self.inputs, *self.draws), (*inputs, *draws)):
-            if dst is not None:
-                dst.copy_(src)
+        graphs.load(self.static, (*inputs, *draws))
 
     def _outputs(self, front: Front, inter: dict, pose, num_inliers):
         result = RegistrationResult(
@@ -559,67 +500,77 @@ class _GraphProgram:
         return (result, inter) if self.return_intermediates else result
 
     def replay_front(self, inputs: PairInputs, draws: Draws,
-                     caller: torch.cuda.Stream,
-                     call: Optional[_Call] = None) -> None:
-        """Loads the pair and replays the front on the program's stream,
+                     caller: torch.cuda.Stream, call: _Call) -> None:
+        """Loads the pair and replays the front on the chain's stream,
         after the work queued on ``caller``, as a chain of ``call``."""
-        if _state_ptrs(self.model) != self.state:
-            raise RuntimeError(
-                "make_register_fn: the model's parameters or buffers are not "
-                "the tensors the graphs were captured with (load weights in "
-                "place, e.g. load_state_dict, or make a new fn)")
+        self.guard.check()
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
             with profiling.span("register.load"):
                 self._load(inputs, draws)
-            if call is not None:
-                call.front_started(self.front_timer)
+            call.front_started(self.front_timer)
             with profiling.span("register.front"):
                 self.front_graph.replay()
         cuda.add_launches(self.front_launches)
 
-    def replay_tail(self, boost: bool, call: Optional[_Call] = None):
-        """Replays the tail of the budget ``boost`` on the program's stream
-        (after its front), as a chain of ``call``; returns the program's
+    def replay_tail(self, boost: bool, call: _Call):
+        """Replays the tail of the budget ``boost`` on the chain's stream
+        (after its front), as a chain of ``call``; returns the chain's
         outputs, which the caller copies once it has joined the stream."""
         graph, (pose, num_inliers), launches = self.tails[boost]
-        if call is not None:
-            call.tail_started(self.tail_timers[boost])
+        call.tail_started(self.tail_timers[boost])
         with torch.cuda.stream(self.stream), profiling.span("register.tail"):
             graph.replay()
         cuda.add_launches(launches)
         return self._outputs(self.front, self.inter, pose, num_inliers)
 
-    def __call__(self, inputs: PairInputs, draws: Draws):
-        return _replay(self.calls, [self], self.dev, [inputs], [draws],
-                       lambda: [self.front.num_mutual],
-                       lambda outs: _clone(outs[0]))
 
-
-class _UnrolledProgram:
-    """U pairs' :class:`_GraphProgram` chains, one a pair, each with its own
-    stream and memory pool.  A call forks every chain from the caller's
-    stream and replays the U fronts side by side, joins them, reads the U
-    mutual counts in one copy to the host (the counterpart of the U
-    ``lax.cond`` of one JAX program), replays each chain's taken tail on
-    its stream (a group may take both tails), joins again and stacks the
-    outputs on the caller's stream (:func:`_replay`).  ``capture_s``: the
+class _Program:
+    """U pairs' :class:`_Chain` s for one input signature, one a pair (U = 1
+    for :func:`make_register_fn`), each with its own stream and memory
+    pool.  A call forks every chain from the caller's stream and replays
+    the U fronts side by side, joins them, reads the U mutual counts in
+    one copy to the host (the counterpart of the U ``lax.cond`` of one JAX
+    program), replays each chain's taken tail on its stream (a group may
+    take both tails), joins again and stacks the outputs on the caller's
+    stream.  It records the call's events into ``calls`` and records the
+    previous call while the fronts run; while tracing, host spans.
+    ``first``: the chains' warm-up results, stacked; ``capture_s``: the
     chains' capture seconds, summed."""
 
     def __init__(self, model: BufferModel, dev: torch.device,
                  return_intermediates: bool, inputs_list, draws_list):
         self.cfg, self.dev = model.cfg, dev
-        self.chains = [_GraphProgram(model, dev, return_intermediates, i, d)
+        self.chains = [_Chain(model, dev, return_intermediates, i, d)
                        for i, d in zip(inputs_list, draws_list)]
-        self.first = _stack([c.first for c in self.chains])
+        self.first = graphs.stack([c.first for c in self.chains])
         self.capture_s = sum(c.capture_s for c in self.chains)
         self.calls = _Calls()
 
     def __call__(self, inputs_list, draws_list):
-        return _replay(self.calls, self.chains, self.dev, inputs_list, draws_list,
-                       lambda: torch.stack([c.front.num_mutual
-                                            for c in self.chains]).tolist(),
-                       _stack)
+        chains, calls = self.chains, self.calls
+        caller = torch.cuda.current_stream(self.dev)
+        call = calls.begin(len(chains), caller)
+        with profiling.span("register.call", str(call.index)):
+            for chain, inputs, draws in zip(chains, inputs_list, draws_list):
+                chain.replay_front(inputs, draws, caller, call)
+            calls.flush()
+            for chain in chains:
+                caller.wait_stream(chain.stream)
+            call.fronts_done = _event(caller)
+            with profiling.span("register.mutual_read"):
+                counts = torch.stack([c.front.num_mutual
+                                      for c in chains]).tolist()
+                boosts = [boost_taken(self.cfg, n) for n in counts]
+            outs = [chain.replay_tail(b, call)
+                    for chain, b in zip(chains, boosts)]
+            call.read_fronts()
+            for chain in chains:
+                caller.wait_stream(chain.stream)
+            with profiling.span("register.outputs"):
+                out = graphs.stack(outs)
+            calls.end(call, caller)
+        return out
 
 
 def _event(stream) -> torch.cuda.Event:
@@ -729,70 +680,35 @@ class _Calls:
             self.pending, self.last_end = call, call.end
 
 
-def _replay(calls: _Calls, chains: list, dev: torch.device, inputs_list,
-            draws_list, counts, gather):
-    """One call of ``chains`` (:class:`_GraphProgram` s): the fronts
-    replayed side by side, the chains joined, the mutual counts read
-    (``counts()``: one per chain, a tensor or an int), each chain's taken
-    tail replayed, the chains joined, ``gather(outs)``.  Records the call's
-    events into ``calls`` and records the previous call while the fronts
-    run; while tracing, host spans."""
-    cfg = chains[0].cfg
-    caller = torch.cuda.current_stream(dev)
-    call = calls.begin(len(chains), caller)
-    with profiling.span("register.call", str(call.index)):
-        for chain, inputs, draws in zip(chains, inputs_list, draws_list):
-            chain.replay_front(inputs, draws, caller, call)
-        calls.flush()
-        for chain in chains:
-            caller.wait_stream(chain.stream)
-        call.fronts_done = _event(caller)
-        with profiling.span("register.mutual_read"):
-            boosts = [boost_taken(cfg, n) for n in counts()]
-        outs = [chain.replay_tail(b, call) for chain, b in zip(chains, boosts)]
-        call.read_fronts()
-        for chain in chains:
-            caller.wait_stream(chain.stream)
-        with profiling.span("register.outputs"):
-            out = gather(outs)
-        calls.end(call, caller)
-    return out
-
-
 def make_register_fn(model: BufferModel, device=None,
                      return_intermediates: bool = False):
     """The compiled registration program (counterpart of
     ``buffer_tpu/pipeline/registration.py:305``'s ``jax.jit`` of
     ``register_pair``): returns ``fn(inputs, draws)``, which returns what
     :func:`register_pair` returns for the same inputs and draws (with
-    ``return_intermediates``, also clones of its intermediates dict).
+    ``return_intermediates``, also copies of its intermediates dict).
 
-    On the card (the default) the pair runs as CUDA graphs, captured once
-    for each input signature (shapes, dtypes, which fields are None) on
-    the first call, after an eager warm-up whose result that call returns;
-    every later call replays them.  The graphs read the model's parameters
-    and buffers in place: loading weights in place (``load_state_dict``)
-    carries over, replacing a tensor makes the next call raise.  A capture
-    that fails raises; nothing falls back to eager.  On the CPU ``fn`` runs
+    On the card (the default) it is :func:`make_unrolled_register_fn`'s
+    program at U = 1: the pair runs as CUDA graphs, captured once for each
+    input signature (shapes, dtypes, which fields are None) on the first
+    call, after an eager warm-up whose result that call returns; every
+    later call replays them, and ``fn`` drops the result's leading axis.
+    The graphs read the model's parameters and buffers in place: loading
+    weights in place (``load_state_dict``) carries over, replacing a
+    tensor makes the next call raise.  A capture that fails raises;
+    nothing falls back to eager.  On the CPU ``fn`` runs
     :func:`register_pair`, the same front and tail, eagerly."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         return lambda inputs, draws: register_pair(
             model, inputs, draws, device=dev,
             return_intermediates=return_intermediates)
-    programs = {}
+    group = _group_fn(model, 1, dev, return_intermediates)
 
     def fn(inputs: PairInputs, draws: Draws):
-        _check_model(model, dev)
-        key = _signature(inputs, draws)
-        if key not in programs:
-            program = _GraphProgram(model, dev, return_intermediates, inputs,
-                                    draws)
-            programs[key] = program
-            return program.first
-        return programs[key](inputs, draws)
+        return graphs.map_nest(lambda t: t[0], group([inputs], [draws]))
 
-    fn.programs = programs
+    fn.programs = group.programs
     return fn
 
 
@@ -810,36 +726,43 @@ def make_unrolled_register_fn(model: BufferModel, unroll: int, device=None,
     The U chains share no data, so each pair's serial tails (the FPS
     chain, the top-k steps, the IRLS rounds, the per-row gathers) can run
     under the other pairs' heavy work.  On the card (the default) each pair
-    is a program of CUDA graphs with its own stream and memory pool,
+    is a chain of CUDA graphs with its own stream and memory pool,
     captured on the first call of each input signature after an eager
     warm-up whose results that call returns; a later call replays the U
     fronts side by side, reads the U mutual counts to the host in one copy,
-    replays each pair's taken tail on its stream and stacks the outputs.
-    A capture or launch that fails raises; nothing falls back to one chain
-    or to eager.  On the CPU ``fn`` runs :func:`register_pair` U times."""
+    replays each pair's taken tail on its stream and stacks the outputs
+    (:class:`_Program`).  A capture or launch that fails raises; nothing
+    falls back to one chain or to eager.  On the CPU ``fn`` runs
+    :func:`register_pair` U times."""
     if unroll < 1:
         raise ValueError(f"unroll must be at least 1, not {unroll}")
-    dev = resolve_device(device)
-    programs = {}
+    return _group_fn(model, unroll, resolve_device(device),
+                     return_intermediates)
 
-    def fn(inputs_list, draws_list):
+
+def _group_fn(model: BufferModel, unroll: int, dev: torch.device,
+              return_intermediates: bool):
+    """:func:`make_unrolled_register_fn`'s ``fn`` on ``dev``, a
+    :class:`_Program` for each input signature (``graphs.cache``)."""
+
+    def key(inputs_list, draws_list) -> tuple:
+        """A call's signature, once its arguments are checked."""
         if len(inputs_list) != unroll or len(draws_list) != unroll:
             raise ValueError(f"make_unrolled_register_fn: {len(inputs_list)} "
                              f"inputs and {len(draws_list)} draws for "
                              f"{unroll} pairs")
-        if dev.type != "cuda":
-            return _stack([register_pair(
+        _check_model(model, dev)
+        return tuple(graphs.signature((*i, *d))
+                     for i, d in zip(inputs_list, draws_list))
+
+    if dev.type != "cuda":
+        def fn(inputs_list, draws_list):
+            key(inputs_list, draws_list)
+            return graphs.stack([register_pair(
                 model, inputs, draws, device=dev,
                 return_intermediates=return_intermediates)
                 for inputs, draws in zip(inputs_list, draws_list)])
-        _check_model(model, dev)
-        key = tuple(_signature(i, d) for i, d in zip(inputs_list, draws_list))
-        if key not in programs:
-            program = _UnrolledProgram(model, dev, return_intermediates,
-                                       inputs_list, draws_list)
-            programs[key] = program
-            return program.first
-        return programs[key](inputs_list, draws_list)
-
-    fn.programs = programs
-    return fn
+        fn.programs = {}
+        return fn
+    return graphs.cache(lambda inputs_list, draws_list: _Program(
+        model, dev, return_intermediates, inputs_list, draws_list), key)

@@ -180,7 +180,7 @@ def chain_mismatches(model, inputs, draws, rows: Sequence[Row]) -> list:
 
 def run(model, inputs, draws) -> dict:
     """The profile (see the module's docstring) as a dict."""
-    from buffer_tpu_torch.pipeline.registration import full_fp32
+    from buffer_tpu_torch.core.numerics import full_fp32
     from buffer_tpu_torch.utils.profiling import graph_time
     with torch.no_grad(), full_fp32():
         rows = micro_bodies(model, inputs, draws)

@@ -21,8 +21,9 @@ TF32 allowed (matmuls and cuDNN) and with ``full_fp32()``; the gradients'
 relative L2 error.
 
 Prints one JSON line: the card (name, power limit), each stage's replay
-ms, first-call ms, capture seconds and first loss, and the precision
-check.  Runs on the CUDA card only.
+ms, first-call ms, capture seconds, first loss and peak allocated bytes
+(the batch, the model, Adam's state, the first call and the replays), and
+the precision check.  Runs on the CUDA card only.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def stage_grads(model, stage: str, batch, draws, det_margin: float,
     body, with TF32 allowed or with ``full_fp32()``; the running statistics
     are put back afterwards."""
     from buffer_tpu_torch.pipeline import train_forward as tf
-    from buffer_tpu_torch.pipeline.registration import full_fp32
+    from buffer_tpu_torch.core.numerics import full_fp32
     params = list(getattr(model, stage).parameters())
     saved = [b.clone() for b in model.buffers()]
     model.eval()
@@ -106,10 +107,12 @@ def precision_check(cfg, batch, draws, stages, det_margin: float) -> list:
 
 def time_stage(cfg, stage: str, batch, draws, det_margin: float, dev) -> dict:
     """The compiled step of ``stage`` from a fresh model: its first call
-    (eager step and capture) and the replay's device ms."""
+    (eager step and capture), the replay's device ms and the peak memory
+    allocated since the model was made."""
     from buffer_tpu_torch.models.composite import BufferModel
     from buffer_tpu_torch.train.trainer import make_optimizer, make_train_step
     from buffer_tpu_torch.utils.profiling import StepTimer, replay_time
+    torch.cuda.reset_peak_memory_stats(dev)
     model = BufferModel(cfg, seed=0).to(dev)
     opt, _ = make_optimizer(cfg, model, stage)
     fn = make_train_step(model, opt, stage, det_margin, dev)
@@ -119,7 +122,8 @@ def time_stage(cfg, stage: str, batch, draws, det_margin: float, dev) -> dict:
     (program,) = fn.programs.values()
     return {"stage": stage, "replay_ms": replay_time(lambda: fn(batch, draws)),
             "first_call_ms": 1e3 * first.median, "capture_s": program.capture_s,
-            "first_loss": float(loss)}
+            "first_loss": float(loss),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -33,10 +33,10 @@ import torch.distributed as dist
 
 from buffer_tpu_torch import resolve_device
 from buffer_tpu_torch.config import Config
+from buffer_tpu_torch.core import graphs
 from buffer_tpu_torch.kernels import cuda, sites
 from buffer_tpu_torch.models.composite import BufferModel
-from buffer_tpu_torch.pipeline.registration import (PairInputs, _clone,
-                                                    capture_graph)
+from buffer_tpu_torch.pipeline.registration import PairInputs
 from buffer_tpu_torch.pipeline.train_forward import (TrainDraws,
                                                      make_train_draws,
                                                      stage_loss)
@@ -232,18 +232,9 @@ def make_dp_train_step(model: BufferModel, optimizer: torch.optim.Optimizer,
         return result(flats, keys, apply(flats))
 
     held = lambda: step_tensors(model, optimizer)
-    programs = {}
-
-    def step(batch: TrainBatch, draws: TrainDraws):
-        key = _signature(batch, draws)
-        if key not in programs:
-            programs[key] = _DPProgram((local, reduce, apply, result), held,
-                                       dev, batch, draws)
-            return programs[key].first
-        return programs[key](batch, draws)
-
+    step = graphs.cache(lambda batch, draws: _DPProgram(
+        (local, reduce, apply, result), held, dev, batch, draws), _signature)
     step.eager = eager
-    step.programs = programs
     return step
 
 
@@ -288,13 +279,15 @@ def eval_step(model: BufferModel, stage: str, batch: TrainBatch,
                           train=False, det_margin=det_margin, device=device)
 
 
+def _fields(batch: TrainBatch, draws: TrainDraws) -> tuple:
+    """Every field of a step's inputs, in order (None for an absent one)."""
+    return (*batch.inputs, batch.relt_pose, *draws)
+
+
 def _signature(batch: TrainBatch, draws: TrainDraws) -> tuple:
-    """Shapes and dtypes of every field (None for an absent one) and
-    whether the kernels' plain versions are in force: the key of a
-    captured step, as jit's cache keys on shapes and dtypes."""
-    return (tuple(None if t is None else (tuple(t.shape), t.dtype)
-                  for t in (*batch.inputs, batch.relt_pose, *draws)),
-            sites.plain_active())
+    """The signature of every field and whether the kernels' plain
+    versions are in force: the key of a captured step."""
+    return graphs.signature(_fields(batch, draws)), sites.plain_active()
 
 
 def step_tensors(model: BufferModel, optimizer=None) -> List[torch.Tensor]:
@@ -309,54 +302,28 @@ def step_tensors(model: BufferModel, optimizer=None) -> List[torch.Tensor]:
 
 
 class _Program:
-    """A step's static inputs on the card and the check that the tensors a
-    graph captured are still the ones the model and optimizer hold.
+    """A step's static inputs on the card and the guard on the tensors a
+    graph captured (:func:`step_tensors`).
 
     ``first``: the first call's result, computed eagerly on a side stream
-    before any capture (first-use allocations, handles and attributes
-    happen there, not while capturing); ``capture_s``: the host seconds
+    before any capture (``graphs.warm``); ``capture_s``: the host seconds
     that the captures took."""
 
     def __init__(self, held: Callable[[], List[torch.Tensor]],
                  dev: torch.device, batch: TrainBatch, draws: TrainDraws):
-        self.held, self.dev = held, dev
-        self.ptrs = self._ptrs()
-        empty = lambda t: None if t is None else torch.empty(
-            t.shape, dtype=t.dtype, device=dev)
-        self.batch = TrainBatch(PairInputs(*(empty(t) for t in batch.inputs)),
-                                empty(batch.relt_pose))
-        self.draws = TrainDraws(*(empty(t) for t in draws))
-        self._load(batch, draws)
-
-    def _ptrs(self) -> tuple:
-        return tuple(t.data_ptr() for t in self.held())
-
-    def _load(self, batch: TrainBatch, draws: TrainDraws) -> None:
-        for dst, src in zip((*self.batch.inputs, self.batch.relt_pose, *self.draws),
-                            (*batch.inputs, batch.relt_pose, *draws)):
-            if dst is not None:
-                dst.copy_(src)
-
-    def _warm(self, run):
-        """``run()`` eagerly on a side stream; returns its result."""
-        if self.dev.type != "cuda":
-            return run()
-        stream = torch.cuda.current_stream(self.dev)
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            out = run()
-        stream.wait_stream(side)
-        return out
+        self.dev = dev
+        self.guard = graphs.Guard(held, (
+            "a compiled training step: the model's parameters or buffers "
+            "or Adam's state are not the tensors the graphs were captured "
+            "with (load weights in place, e.g. load_state_dict, or make a "
+            "new step)"))
+        self.batch, self.draws = graphs.empty_like((batch, draws), dev)
+        self.static = _fields(self.batch, self.draws)
+        graphs.load(self.static, _fields(batch, draws))
 
     def _check(self, batch: TrainBatch, draws: TrainDraws) -> None:
-        if self._ptrs() != self.ptrs:
-            raise RuntimeError(
-                "a compiled training step: the model's parameters or buffers "
-                "or Adam's state are not the tensors the graphs were captured "
-                "with (load weights in place, e.g. load_state_dict, or make a "
-                "new step)")
-        self._load(batch, draws)
+        self.guard.check()
+        graphs.load(self.static, _fields(batch, draws))
 
 
 class _StepProgram(_Program):
@@ -370,9 +337,10 @@ class _StepProgram(_Program):
 
     def __init__(self, run, held, dev, batch, draws):
         super().__init__(held, dev, batch, draws)
-        self.first = _clone(self._warm(lambda: run(self.batch, self.draws)))
+        self.first = graphs.clone(graphs.warm(
+            lambda: run(self.batch, self.draws), dev))
         t0 = time.perf_counter()
-        self.graph, self.out, self.launches = capture_graph(
+        self.graph, self.out, self.launches = graphs.capture_graph(
             lambda: run(self.batch, self.draws), torch.cuda.graph_pool_handle())
         self.capture_s = time.perf_counter() - t0
 
@@ -380,7 +348,7 @@ class _StepProgram(_Program):
         self._check(batch, draws)
         self.graph.replay()
         cuda.add_launches(self.launches)
-        return _clone(self.out)
+        return graphs.clone(self.out)
 
 
 class _DPProgram(_Program):
@@ -401,14 +369,16 @@ class _DPProgram(_Program):
         def step():
             flats, keys = self.local(self.batch, self.draws)
             self.reduce(flats)
-            return _clone(self.result(flats, keys, self.apply(flats))), flats, keys
-        self.first, flats, self.keys = self._warm(step)
+            return (graphs.clone(self.result(flats, keys, self.apply(flats))),
+                    flats, keys)
+        self.first, flats, self.keys = graphs.warm(step, dev)
         t0 = time.perf_counter()
         if dev.type == "cuda":
             pool = torch.cuda.graph_pool_handle()
-            self.graph_a, (self.flats, _), self.launches_a = capture_graph(
-                lambda: self.local(self.batch, self.draws), pool)
-            self.graph_b, self.finite, self.launches_b = capture_graph(
+            self.graph_a, (self.flats, _), self.launches_a = \
+                graphs.capture_graph(lambda: self.local(self.batch,
+                                                        self.draws), pool)
+            self.graph_b, self.finite, self.launches_b = graphs.capture_graph(
                 lambda: self.apply(self.flats), pool)
         else:
             self.flats = tuple(None if f is None else torch.empty_like(f)
@@ -421,10 +391,7 @@ class _DPProgram(_Program):
             self.graph_a.replay()
             cuda.add_launches(self.launches_a)
         else:
-            for dst, src in zip(self.flats,
-                                self.local(self.batch, self.draws)[0]):
-                if dst is not None:
-                    dst.copy_(src)
+            graphs.load(self.flats, self.local(self.batch, self.draws)[0])
         self.reduce(self.flats)
         if self.dev.type == "cuda":
             self.graph_b.replay()
@@ -432,7 +399,7 @@ class _DPProgram(_Program):
             finite = self.finite
         else:
             finite = self.apply(self.flats)
-        return _clone(self.result(self.flats, self.keys, finite))
+        return graphs.clone(self.result(self.flats, self.keys, finite))
 
 
 def make_train_step(model: BufferModel, optimizer: torch.optim.Optimizer,
@@ -472,19 +439,11 @@ def make_eval_step(model: BufferModel, stage: str, det_margin: float,
 
 
 def _compiled(run, held, dev: torch.device):
+    """``run`` off the card; on it, a :class:`_StepProgram` a signature."""
     if dev.type != "cuda":
         return run
-    programs = {}
-
-    def fn(batch: TrainBatch, draws: TrainDraws):
-        key = _signature(batch, draws)
-        if key not in programs:
-            programs[key] = _StepProgram(run, held, dev, batch, draws)
-            return programs[key].first
-        return programs[key](batch, draws)
-
-    fn.programs = programs
-    return fn
+    return graphs.cache(lambda batch, draws: _StepProgram(
+        run, held, dev, batch, draws), _signature)
 
 
 def host_stats(stats: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -495,11 +495,11 @@ def warmup_launches(cfg, chains: int) -> dict:
 
 
 def chains_built(fn) -> int:
-    """The graph chains that a registration program ``fn`` holds: one a
-    signature of ``make_register_fn``, U of ``make_unrolled_register_fn``
-    (none on the CPU, where ``fn`` is eager)."""
-    return sum(len(getattr(p, "chains", (p,)))
-               for p in getattr(fn, "programs", {}).values())
+    """The graph chains that a registration program ``fn`` holds: U a
+    signature of ``make_unrolled_register_fn``, one of
+    ``make_register_fn`` (its program at U = 1; none on the CPU, where
+    ``fn`` is eager)."""
+    return sum(len(p.chains) for p in getattr(fn, "programs", {}).values())
 
 
 def check_launches(path: str, rose: dict, want: dict = None) -> None:
@@ -2326,7 +2326,7 @@ def program_path(path: str, dev, cfg, model, pairs, draws, eager) -> dict:
             "kernels_per_replay": n_kernels, "eager_kernels": eager_kernels,
             "profiled_kernels": {n: c for n, c in seen.items() if c},
             "profiles_taken": attempts,
-            "launches": counts, "tails": sorted(program.tails)}
+            "launches": counts, "tails": sorted(program.chains[0].tails)}
     print(json.dumps(line))
     return line
 
@@ -2670,7 +2670,7 @@ def bench_path(dev, programs) -> dict:
                 res = fn(inputs_list, draws_list)
                 last[:] = [model, inputs_list, draws_list, res]
                 return res
-            kept.programs = getattr(fn, "programs", None)
+            kept.programs = fn.programs
             return kept
 
         buf = io.StringIO()

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from buffer_tpu_torch.config import kitti_cfg, threedmatch_cfg, tiny_cfg
-from buffer_tpu_torch.core import se3
+from buffer_tpu_torch.core import graphs, se3
 from buffer_tpu_torch.data.preprocess import morton_sort
 from buffer_tpu_torch.data.synthetic import surface_pair
 from buffer_tpu_torch.kernels import (conv_cuda, cuda, cyl_cuda, fps_cuda,
@@ -1175,7 +1175,8 @@ def test_program_equals_register_pair(card, plan, th):
     for res, w in got:
         assert all(torch.equal(a, b) for a, b in zip(res, w))
     (program,) = fn.programs.values()
-    assert sorted(program.tails) == [False, True]
+    (chain,) = program.chains
+    assert sorted(chain.tails) == [False, True]
 
 
 def _sync_count(fn):
@@ -1380,10 +1381,10 @@ def test_program_outputs_equal_with_and_without_profiler(card):
              lambda: single(pairs[0], draws[0])]
     for call in calls:
         call()
-    plain = [registration._clone(call()) for call in calls]
+    plain = [graphs.clone(call()) for call in calls]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced = [registration._clone(call()) for call in calls]
+        traced = [graphs.clone(call()) for call in calls]
         torch.cuda.synchronize()
     for p, t in zip(plain, traced):
         assert all(torch.equal(a, b) for a, b in zip(p, t))

@@ -30,6 +30,7 @@ from buffer_tpu.pipeline.registration import make_register_fn as j_make_register
 
 import buffer_tpu_torch.config as tconfig
 from buffer_tpu_torch.compat.from_jax import variables_to_state_dict
+from buffer_tpu_torch.core import graphs
 from buffer_tpu_torch.data.preprocess import prepare_pair
 from buffer_tpu_torch.models.composite import BufferModel
 from buffer_tpu_torch.pipeline import registration
@@ -211,7 +212,7 @@ def test_program_result_survives_next_call():
     fn = make_register_fn(model, device="cpu")
     gen = torch.Generator().manual_seed(0)
     first = fn(_pair(cfg, 0), make_draws(cfg, gen, "cpu"))
-    kept = registration._clone(first)
+    kept = graphs.clone(first)
     second = fn(_pair(cfg, 4), make_draws(cfg, gen, "cpu"))
     _assert_results_equal(first, kept)
     assert not torch.equal(first.kpts, second.kpts)
@@ -237,12 +238,36 @@ def test_program_intermediates_match_register_pair():
         assert all(torch.equal(a, b) for a, b in zip(got_l, want_l)), name
 
 
+@pytest.mark.parametrize("return_intermediates", [False, True])
+def test_register_fn_is_the_one_pair_group(return_intermediates):
+    """``make_register_fn`` is ``make_unrolled_register_fn`` at U = 1 with
+    the leading axis dropped: on the CPU its result (and intermediates)
+    equal the one-pair group's at index 0 and ``register_pair``'s, bit for
+    bit."""
+    cfg = tconfig.tiny_cfg()
+    model = BufferModel(cfg, seed=0).eval()
+    inputs = _pair(cfg, 0)
+    draws = make_draws(cfg, torch.Generator().manual_seed(3), "cpu")
+    kw = {"device": "cpu", "return_intermediates": return_intermediates}
+    got = make_register_fn(model, **kw)(inputs, draws)
+    group = registration.make_unrolled_register_fn(model, 1, **kw)(
+        [inputs], [draws])
+    want = register_pair(model, inputs, draws, **kw)
+    leaves = torch.utils._pytree.tree_leaves
+    got_l, group_l, want_l = leaves(got), leaves(group), leaves(want)
+    assert len(got_l) == len(group_l) == len(want_l) > 0
+    for a, g, w in zip(got_l, group_l, want_l):
+        assert g.shape == (1, *a.shape)
+        assert a.dtype == g.dtype == w.dtype
+        assert torch.equal(a, g[0]) and torch.equal(a, w)
+
+
 def test_clone_copies_every_tensor_of_a_nest():
     """The program's output copy: every tensor of nested named tuples,
     tuples and dicts is a new tensor with equal values; None stays."""
     t = torch.arange(6.0).reshape(2, 3)
     nest = {"a": Draws(t, t[0], t, None), "b": (t, [1, 2]), "c": 3}
-    out = registration._clone(nest)
+    out = graphs.clone(nest)
     assert isinstance(out["a"], Draws) and out["a"].ransac_gumbel_boost is None
     assert torch.equal(out["a"].ball_prio, t)
     assert out["a"].ball_prio.data_ptr() != t.data_ptr()

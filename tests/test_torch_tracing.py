@@ -6,8 +6,8 @@ the per-call records, and the stage marks of ``pair_front`` and
 ``pair_tail``.
 
 A compiled program's call needs the card (CUDA graphs, streams, events),
-so the call tests drive the program's real call path (``_replay`` through
-``_GraphProgram.replay_front`` / ``replay_tail``) over stand-ins for the
+so the call tests drive the program's real call path (``_Program``'s call
+through ``_Chain.replay_front`` / ``replay_tail``) over stand-ins for the
 graphs, streams and events; the card's side is in
 ``tests/test_torch_cuda.py``."""
 
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from buffer_tpu_torch.config import tiny_cfg
+from buffer_tpu_torch.core import graphs
 from buffer_tpu_torch.data.preprocess import prepare_pair
 from buffer_tpu_torch.data.synthetic import surface_pair
 from buffer_tpu_torch.models.composite import BufferModel
@@ -100,7 +101,7 @@ def accounting(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(reg._GraphProgram, "_capture", _capture)
+    monkeypatch.setattr(reg._Chain, "_capture", _capture)
     return clock
 
 
@@ -111,17 +112,20 @@ def _capture(self, *args):
 
 
 def _chain(model, boost=False):
-    """A ``_GraphProgram`` with stand-in graphs: the real ``__init__`` with
+    """A ``_Chain`` with stand-in graphs: the real ``__init__`` with
     the capture left out, then what the capture would have made."""
     cpu = torch.device("cpu")
     mask = torch.ones(2, 4, dtype=torch.bool)
     inputs = reg.PairInputs(torch.zeros(2, 4, 3), mask, torch.zeros(2, 4, 3),
                             mask)
     draws = reg.Draws(torch.zeros(2, 4), torch.zeros(3), torch.zeros(1, 3, 2))
-    c = reg._GraphProgram(model, cpu, False, inputs, draws)
-    c.model, c.cfg, c.dev, c.return_intermediates = model, model.cfg, cpu, False
-    c.state, c.stream = reg._state_ptrs(model), Stream()
-    c.inputs, c.draws = reg._clone(inputs), reg._clone(draws)
+    c = reg._Chain(model, cpu, False, inputs, draws)
+    c.cfg, c.return_intermediates = model.cfg, False
+    c.guard = graphs.Guard(lambda: (*model.parameters(), *model.buffers()),
+                           reg._STALE)
+    c.stream = Stream()
+    c.inputs, c.draws = graphs.clone(inputs), graphs.clone(draws)
+    c.static = (*c.inputs, *c.draws)
     c.front_timer = Timer(FRONT_MS)
     c.tail_timers = {b: Timer(TAIL_MS) for b in (False, boost)}
     c.front_graph, c.front_launches, c.inter = Graph(c.front_timer), {}, {}
@@ -140,7 +144,7 @@ class _Model(torch.nn.Linear):
 
 
 def _unrolled(chains):
-    prog = object.__new__(reg._UnrolledProgram)
+    prog = object.__new__(reg._Program)
     prog.chains, prog.cfg, prog.dev = chains, chains[0].cfg, torch.device("cpu")
     prog.calls = reg._Calls()
     return prog
@@ -257,12 +261,13 @@ def test_call_records(accounting):
 
 
 def test_graph_program_call_reads_the_count_once(accounting):
-    """``make_register_fn``'s one-chain program: the base tail without the
-    low-match budget, the boost tail below its threshold."""
+    """``make_register_fn``'s program, one chain: the base tail without
+    the low-match budget, the boost tail below its threshold."""
     model = _Model()
     chain, inputs, draws = _chain(model)
-    res = chain(inputs, draws)
-    assert res.pose.shape == (4, 4) and int(res.num_inliers) == 7
+    prog = _unrolled([chain])
+    res = prog([inputs], [draws])
+    assert res.pose.shape == (1, 4, 4) and int(res.num_inliers[0]) == 7
     assert chain.tails[False][0].replays == 1 and chain.front_graph.replays == 1
     rec, = profiling.call_records(0, 1e12)
     assert rec["unroll"] == 1 and rec["stages"] == [dict(FRONT_MS, **TAIL_MS)]

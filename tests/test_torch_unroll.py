@@ -303,13 +303,3 @@ def test_run_eval_unrolled_matches_jax(monkeypatch, tmp_path):
         np.testing.assert_allclose(
             np.linalg.inv(traj[j]), poses[j].numpy().astype(np.float64),
             rtol=1e-6, atol=1e-6)
-
-
-def test_unroll_sweep_without_a_card_raises(capsys):
-    """The sweep of ways to run a group measures on the card only: without
-    one it raises and prints nothing."""
-    from buffer_tpu_torch.utils import unroll_sweep
-    assert not torch.cuda.is_available()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        unroll_sweep.main(["--config", "KITTI", "--unroll", "2"])
-    assert capsys.readouterr().out == ""
