@@ -404,8 +404,10 @@ SYNTH_EXACT_PAIR = {"nearest": 2, "fps": 1, "ball_sample_points": 1,
                     **CONV, **REFINED_TAIL}
 # the compiled program (make_register_fn): the kernels each launch counter
 # stands for, by their __global__ names in csrc/ (a profile of a replay
-# must show each as often as its counter rose), the replays timed a
-# preset (host clock), and the CUDA runtime calls that are host dispatches
+# must show each as often as its counter rose; a convolution is either
+# staging path's kernel, the halo path's weight copy beside it uncounted),
+# the replays timed a preset (host clock), and the CUDA runtime calls that
+# are host dispatches
 GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "bnn1": ("bnn1_pack_kernel", "bnn1_kernel"),
            "nearest": ("nearest_kernel",), "fps": ("fps_cluster_kernel",),
@@ -414,7 +416,8 @@ GLOBALS = {"bknn": ("bknn_pack_kernel", "bknn_kernel"),
            "ball_sample_points": ("ball_pack_kernel", "ball_kernel"),
            "spt_pooled": ("spt_kernel",), "kabsch": ("kabsch_kernel",),
            "irls": ("irls_kernel",), "cyl_pad": ("cyl_pad_kernel",),
-           "conv": ("conv_implicit_gemm_kernel",),
+           "conv": (r"(?:conv_implicit_gemm_kernel"
+                    r"|conv_implicit_gemm_tap_kernel)",),
            "cost_volume": ("cost_volume_kernel",)}
 PROGRAM_TIMED = 6
 # the unrolled program (make_unrolled_register_fn): the pairs a call of
@@ -681,18 +684,22 @@ def conv_pass_calls(model, dev, inputs, draws) -> tuple:
     the descriptor and cost-volume convolutions and the copies around them
     recorded: ({wrapper: [args]}, the cuDNN convolution kernels the pair
     still ran: the modules outside the two nets, such as MiniSpinNet's
-    attention pooling)."""
+    attention pooling, the convolution kernel's launches by staging
+    path)."""
+    from buffer_tpu_torch.kernels import conv_cuda
     from buffer_tpu_torch.models import heads
     from buffer_tpu_torch.nn import cylindrical
     from buffer_tpu_torch.pipeline import registration
     calls = {name: [] for name in CONV_SITES}
+    paths = conv_cuda.path_launches()
     with contextlib.ExitStack() as stack:
         for name in CONV_SITES:
             mod = heads if name == "cost_volume_cuda" else cylindrical
             stack.enter_context(capture(mod, name, calls[name]))
         library = library_convolutions(lambda: registration.register_pair(
             model, inputs, draws, device=dev))
-    return calls, library
+    paths = {k: v - paths[k] for k, v in conv_cuda.path_launches().items()}
+    return calls, library, paths
 
 
 def wide_layer(conv, bn):
@@ -702,7 +709,7 @@ def wide_layer(conv, bn):
             None if bn is None else copy.deepcopy(bn).double())
 
 
-def conv_pass_entries(calls, library=()) -> dict:
+def conv_pass_entries(calls, library=(), paths=None) -> dict:
     """Each kernel over ``calls`` (``conv_pass_calls``, which must hold
     ``CONV``'s calls).  ``cyl_pad`` and ``cost_volume``: the wrapper bit for
     bit its plain version (the padded map channels last, as the
@@ -720,7 +727,10 @@ def conv_pass_entries(calls, library=()) -> dict:
     never calls in inference), all in float32 with TF32 off
     (``full_fp32``); operations 2 Cin taps an output (the
     epilogue's few left out), bytes the input, weights and output once;
-    sums over the calls, and each layer in ``layers``."""
+    sums over the calls, and each layer in ``layers`` with its plan
+    (staging path, block channels, input channels or taps a chunk) and
+    the instance's registers, spills, shared memory a block and blocks an
+    SM; the pair's launches by staging path (``paths``)."""
     import torch
     from buffer_tpu_torch.kernels import conv_cuda, cyl_cuda, sites
     from buffer_tpu_torch.pipeline.registration import full_fp32
@@ -733,13 +743,17 @@ def conv_pass_entries(calls, library=()) -> dict:
     if recorded != CONV:
         raise RuntimeError(f"conv passes: recorded {recorded} calls, "
                            f"expected {CONV}")
+    if paths is not None and sum(paths.values()) != CONV["conv"]:
+        raise RuntimeError(f"conv passes: launches by path {paths}, "
+                           f"expected {CONV['conv']} in all")
     plain_of = {name: plain for _, name, plain in sites.call_sites()}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "flops": 0, "bytes": 0,
                "calls": []} for k in ("cyl_pad", "cost_volume")}
     out["conv"] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
                    "bytes": 0, "err": 0.0, "err_f64": 0.0,
                    "plain_err_f64": 0.0, "layers": [],
-                   "library_convolutions_in_pair": list(library)}
+                   "library_convolutions_in_pair": list(library),
+                   "launches_by_path": paths}
     # cuDNN in float32 with TF32 off, as the program runs it
     with torch.no_grad(), full_fp32():
         for name in ("cyl_pad_cuda", "cost_volume_cuda"):
@@ -788,10 +802,21 @@ def conv_pass_entries(calls, library=()) -> dict:
                 nbytes = 4 * (x.numel() + conv.weight.numel() + got.numel())
                 bound_ms = max(flops / PEAK_FP32_FLOPS,
                                nbytes / PEAK_BYTES) * 1e3
+                store = {"conv_pad_cuda": conv_cuda.PAD,
+                         "conv_bn_relu_cuda": conv_cuda.DENSE,
+                         "conv_bias_cuda": conv_cuda.BIAS}[name]
+                dims, k = conv_cuda._dims(conv, x)
+                pl = conv_cuda.plan(*dims[:4], dims[4], conv.out_channels,
+                                    *k, store)
                 e["layers"].append({
                     "layer": layer, "site": name, "x": list(x.shape),
                     "cout": conv.out_channels,
-                    "kernel": list(conv.kernel_size), "ms": ms,
+                    "kernel": list(conv.kernel_size),
+                    "path": pl.path, "bn": pl.bn,
+                    "chunk": pl.ch if pl.path == "halo" else pl.tg,
+                    **conv_cuda.attributes(*dims[:4], dims[4],
+                                           conv.out_channels, *k, store),
+                    "ms": ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": bound_ms, "share": bound_ms / ms,
                     "library_share": bound_ms / lib_ms, "err_f64": acc,
@@ -4103,6 +4128,7 @@ def run(dev, cfg, kcfg, n_pairs: int, n_kitti: int) -> dict:
     entry(conv_cuda.CONV, counts["conv"], e["err"], e["ms"], e["plain_ms"],
           e["flops"], e["bytes"], e["library_ms"], err_f64=e["err_f64"],
           plain_err_f64=e["plain_err_f64"], layers=e["layers"],
+          launches_by_path=e["launches_by_path"],
           library_convolutions_in_pair=e["library_convolutions_in_pair"],
           share=bound(e["flops"], e["bytes"])[0] / e["ms"],
           ptxas=ptxas["conv"])

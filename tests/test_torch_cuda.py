@@ -219,7 +219,11 @@ def test_register_pair_shipped_preset_kernels_match_plain_path(card):
     """The shipped 3DMatch preset (knn_band = 4096) at full width on one
     synthetic fragment pair: the kernel path equals the plain path."""
     cfg = threedmatch_cfg()
+    paths = conv_cuda.path_launches()
     counts = _kernel_vs_plain_path(cfg, surface_pair(cfg, 0, card)[0], card)
+    paths = {k: v - paths[k] for k, v in conv_cuda.path_launches().items()}
+    # the kernel path's pair and the plain path's (the convolutions kept)
+    assert paths == {"halo": 2 * 13, "tap": 2 * 5}, paths
     assert counts["bknn"] == 4 and counts["bnn1"] == 1, counts
     for name in ("nearest", "fps", "ball_sample", "spt_pooled", "cost_volume"):
         assert counts[name] == 1, counts
@@ -705,25 +709,26 @@ def test_cyl_kernels_match_plain(card, case):
         assert xl.data_ptr() == got.data_ptr() and xl.is_contiguous()
 
 
-def _layer_shapes():
+def _layer_shapes(B=333, K=157):
     """(net, index, conv, batch norm or None, input shape, wrapper) of each
-    of the 18 convolutions at 333 patches and 157 matches: every layer
-    ends on a partial tile."""
+    of the 18 convolutions at B patches and K matches (by default 333 and
+    157: every layer ends on a partial tile, and blocks straddle patches
+    and matches)."""
     from buffer_tpu_torch.nn.cylindrical import CostNet, CylindricalNet
     cyl, cost = CylindricalNet(), CostNet(20)
-    out, x = [], (333, 16, 3, 9, 22)
+    out, x = [], (B, 16, 3, 9, 22)
     for i, grp in enumerate(cyl.layers):
         last = len(grp) == 1
         out.append(("cyl", i, grp[0], None if last else grp[1], x,
                     "conv_bias" if last else "conv_pad"))
-        x = (333, grp[0].out_channels, 9, 22)
-    x = (157, 32, 20, 5, 20)
+        x = (B, grp[0].out_channels, 9, 22)
+    x = (K, 32, 20, 5, 20)
     for i, grp in enumerate(cost.layers):
         last = len(grp) == 1
         out.append(("costnet", i, grp[0], None if last else grp[1], x,
                     "conv_bias" if last else "conv_bn_relu"))
         k = grp[0].kernel_size
-        x = (157, grp[0].out_channels, *[s - q + 1 for s, q in zip(x[2:], k)])
+        x = (K, grp[0].out_channels, *[s - q + 1 for s, q in zip(x[2:], k)])
     return out
 
 
@@ -759,6 +764,32 @@ def test_conv_kernel_matches_float64_at_layer_shapes(card, layer):
     assert got.shape == want.shape
     assert acc <= bound, (net, i, acc, acc_plain)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batches", [(333, 157), (3000, 1500), (1, 1)])
+def test_conv_plans_match_the_launcher(card, batches):
+    """The launcher's own plan of each of the 18 convolutions (its C
+    ``conv_plan``) is ``conv_cuda.plan``'s, at full, partial and single
+    batches; the instance it launches keeps two blocks an SM without
+    spilling."""
+    import ctypes
+    fn = conv_cuda.CONV.lib.load().conv_plan
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    for net, i, conv, bn, shape, site in _layer_shapes(*batches):
+        store = {"conv_pad": conv_cuda.PAD, "conv_bn_relu": conv_cuda.DENSE,
+                 "conv_bias": conv_cuda.BIAS}[site]
+        x = torch.empty(shape)
+        (B, D, H, W, C), k = conv_cuda._dims(conv, x)
+        want = conv_cuda.plan(B, D, H, W, C, conv.out_channels, *k, store)
+        got = (ctypes.c_int * 9)()
+        fn(B, D, H, W, C, conv.out_channels, *k, store, got)
+        assert list(got) == [int(want.path == "tap"), *want[1:]], (net, i)
+        attrs = conv_cuda.attributes(B, D, H, W, C, conv.out_channels, *k,
+                                     store)
+        assert attrs["blocks_per_sm"] == 2 and attrs["local_bytes"] == 0, (
+            net, i, attrs)
 
 
 @pytest.mark.cuda
